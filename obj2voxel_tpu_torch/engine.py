@@ -1,0 +1,354 @@
+"""Voxelization pipeline driver in PyTorch.
+
+The port of obj2voxel_tpu/engine.py's main path for untextured meshes on one
+device:
+
+  host:   bounds -> transform -> subdivide -> (N, 24) triangle table
+  device: plan (ops/plan_device.py) -> one plan-order gather -> per-bucket
+          passes (K1, ops/pass_fused.py: expansion, rank decode, clip, key,
+          premultiply, ordered compaction) -> per-slab merges (stable key
+          sort -> K2 segmented combine -> K3 exact compaction) -> finalize
+          to (xyz, ARGB) per z-slab
+
+Every pass has one shape (K1 with compaction) and every slab, single-pass or
+not, takes the same merge tail: a stable sort of the slot-ordered pass
+outputs equals the stable sort of the full pair stream, so MAX ties still go
+to the earliest pair.  The device is an argument; on a CPU tensor each
+kernel wrapper takes its plain version, on a CUDA tensor it launches the
+hand-written kernel.
+
+Not ported yet (they raise NotImplementedError): supersampling > 1,
+textured meshes and input-area weights.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .constants import BLEND_STRATEGY, MAX_STRATEGY, PAIR_TILE
+from .geometry import compute_mesh_transform, mesh_bounds
+from .ops.combine import finalize_colors, pack_argb, sort_channels
+from .ops.combine_pallas import segment_combine
+from .ops.pack_pallas import pack_exact
+from .ops.pass_fused import fused_pass
+from .ops.plan import plan_mesh
+from .ops.plan_device import gather_ordered, plan_mesh_device
+from .ops.subdivide import subdivide_soup
+from .soup import TexturePool, TriangleSoup, build_tri_table
+from .utils import debug as _dbg
+from .utils.log import log as _log
+
+__all__ = [
+    "MAX_PASS_BUDGET", "TriangleSoup", "build_tri_table", "plan_fold_chunks",
+    "stream_slabs", "voxelize_grid", "voxelize_soup",
+]
+
+#: Maximum pair slots per pass (the effective budget is
+#: min(pair_tile, max_pass_budget)).
+MAX_PASS_BUDGET = 1 << 21
+
+#: Allowed pass sizes; the scheduler covers each segment greedily with full
+#: rungs (obj2voxel_tpu/engine.py BUDGET_LADDER).
+BUDGET_LADDER = (1 << 14, 1 << 17, 1 << 21, 1 << 22, 1 << 23)
+
+#: Rows above which a slab's pass outputs are folded in groups before the
+#: final merge (a memory bound on the merge's sort).
+MERGE_CAP = 1 << 25
+
+#: Pass slots dispatched per wave before the counts are read back (a memory
+#: bound: each slot holds 20 bytes until the slab merges).
+WAVE_CAP_ROWS = 1 << 27
+
+#: Triangles per planning unit for the device planner.
+PLAN_GROUP = 8
+
+
+def _pow2_at_least(n: int, minimum: int = 256) -> int:
+    p = minimum
+    while p < n:
+        p *= 2
+    return p
+
+
+def _chunk_budget(remaining_slots: int, expand: int, max_budget: int) -> int:
+    """The smallest ladder rung covering the remaining slots, else the
+    largest usable one; rungs below `expand` cannot host one row."""
+    usable = [b for b in BUDGET_LADDER if expand <= b <= max_budget]
+    if not usable:
+        return max_budget
+    for b in usable:
+        if b >= remaining_slots:
+            return b
+    return usable[-1]
+
+
+def _schedule_passes(segments, max_budget):
+    """Turn one slab's segments into (expand, budget, r0, n_rows,
+    local_base, wide_local) pass descriptors.  Buckets wider than the budget
+    (giant axis-aligned triangles) get one row per pass, walking the slot
+    domain budget slots at a time with the exact integer rank decode."""
+    passes = []
+    for seg in segments:
+        if (1 << seg.k) <= max_budget:
+            r = seg.r0
+            while r < seg.r1:
+                remaining = seg.r1 - r
+                budget = _chunk_budget(remaining << seg.k, 1 << seg.k, max_budget)
+                rows = min(max(1, budget >> seg.k), remaining)
+                passes.append((1 << seg.k, budget, r, rows, 0, False))
+                r += rows
+        else:
+            budget = max_budget
+            n_sub = -(-(1 << seg.k) // budget)
+            for row in range(seg.r0, seg.r1):
+                for j in range(n_sub):
+                    passes.append((budget, budget, row, 1, j * budget, True))
+    return passes
+
+
+def plan_fold_chunks(sizes, cap):
+    """Partition indices [0, len) into consecutive groups whose size sums
+    stay <= cap (a group always takes at least one item)."""
+    groups, cur, acc = [], [], 0
+    for i, s in enumerate(sizes):
+        if cur and acc + s > cap:
+            groups.append(cur)
+            cur, acc = [], 0
+        cur.append(i)
+        acc += s
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def _merge_keys(keys, chans, is_blend):
+    """Stable sort -> K2 -> K3: compacted unique (keys, chans, count (1,))
+    in slab-local key order."""
+    sk, sch = sort_channels(keys, chans)
+    tk, *tv = segment_combine(sk, *sch, is_blend)
+    return pack_exact(tk, tuple(tv))
+
+
+def _fold_outputs(chunk, is_blend):
+    """Merge a group of (keys, chans) pass outputs into one compacted
+    output, sliced to its live count."""
+    keys = torch.cat([c[0] for c in chunk])
+    chans = tuple(torch.cat([c[1][j] for c in chunk]) for j in range(4))
+    k, ch, count = _merge_keys(keys, chans, is_blend)
+    n = int(count.item())
+    return k[:n], tuple(c[:n] for c in ch)
+
+
+def _finalize_merge(keys, chans, z_lo, stride):
+    """Slab-local keys -> (xyz (P, 3) int32, argb (P,) uint32)."""
+    k = keys.to(torch.int64)
+    x = k % stride
+    y = (k // stride) % stride
+    z = k // (stride * stride) + z_lo
+    xyz = torch.stack([x, y, z], dim=-1).to(torch.int32)
+    return xyz, pack_argb(finalize_colors(chans))
+
+
+def _merge_pass(keys, chans, z_lo, is_blend, stride):
+    """Merge one slab's pass outputs and finalize: (xyz, argb, count (1,)).
+    Rows past count are padding."""
+    k, ch, count = _merge_keys(keys, chans, is_blend)
+    xyz, argb = _finalize_merge(k, ch, z_lo, stride)
+    return xyz, argb, count
+
+
+def _pull(arr, count):
+    """The first `count` rows on the host as numpy."""
+    return arr[:count].cpu().numpy()
+
+
+def voxelize_soup(
+    soup: TriangleSoup,
+    pool: TexturePool | None = None,
+    *,
+    resolution: int,
+    device,
+    supersampling: int = 1,
+    strategy: int = MAX_STRATEGY,
+    unit_transform=None,
+    bounds=None,
+    pair_tile: int = PAIR_TILE,
+    max_pass_budget: int = MAX_PASS_BUDGET,
+    subdivide: bool = True,
+    group: int = PLAN_GROUP,
+):
+    """Voxelize a triangle soup on `device`; yields (xyz int32 (K, 3), argb
+    uint32 (K,)) numpy arrays per z-slab."""
+    if supersampling != 1:
+        raise NotImplementedError("supersampling > 1 is not ported yet")
+    if pool is not None and len(pool):
+        raise NotImplementedError("textured meshes are not ported yet")
+    device = torch.device(device)
+    n = len(soup)
+    if n == 0:
+        return
+
+    sample_res = resolution * supersampling
+    is_blend = bool(strategy == BLEND_STRATEGY)
+    if bounds is None:
+        mesh_min, mesh_max = mesh_bounds(soup.verts)
+    else:
+        mesh_min = np.asarray(bounds[0], np.float32)
+        mesh_max = np.asarray(bounds[1], np.float32)
+    transform = compute_mesh_transform(mesh_min, mesh_max, sample_res, unit_transform)
+
+    verts_host = transform.apply(soup.verts)
+    if subdivide:
+        verts_host, uvs_host, tri_index = subdivide_soup(verts_host, soup.uvs)
+        types_host = soup.types[tri_index]
+        rgb_host = soup.rgb[tri_index]
+        tex_host = soup.tex[tri_index]
+    else:
+        uvs_host, types_host, rgb_host, tex_host = (
+            soup.uvs, soup.types, soup.rgb, soup.tex,
+        )
+    gen = voxelize_grid(
+        verts_host, uvs_host, types_host, rgb_host, tex_host,
+        device=device, stride=sample_res, z_extent=sample_res,
+        is_blend=is_blend, pair_tile=pair_tile,
+        max_pass_budget=max_pass_budget, group=group,
+    )
+    del verts_host, uvs_host, types_host, rgb_host, tex_host
+    yield from gen
+
+
+def voxelize_grid(
+    verts_host, uvs_host, types_host, rgb_host, tex_host, *,
+    device,
+    stride: int,
+    z_extent: int,
+    is_blend: bool,
+    pair_tile: int = PAIR_TILE,
+    max_pass_budget: int = MAX_PASS_BUDGET,
+    group: int = PLAN_GROUP,
+):
+    """Streaming loop over z-slabs for pre-transformed triangles on a grid
+    spanning [0, stride) in x/y and [0, z_extent) in z."""
+    n_sub = verts_host.shape[0]
+    if n_sub == 0:
+        return
+    clamp_hi = np.array([stride, stride, z_extent], np.float32)
+    vmin_h = np.clip(np.floor(verts_host.min(axis=1)), 0, clamp_hi).astype(np.int32)
+    vmax_h = np.clip(np.floor(verts_host.max(axis=1)) + 1, 0, clamp_hi).astype(np.int32)
+    table = torch.from_numpy(
+        build_tri_table(verts_host, uvs_host, types_host, rgb_host, tex_host,
+                        n_pad=_pow2_at_least(n_sub))
+    ).to(device)
+    del verts_host, uvs_host, types_host, rgb_host, tex_host
+    yield from stream_slabs(
+        table, aabb_host=(vmin_h, vmax_h), stride=stride, z_extent=z_extent,
+        is_blend=is_blend, pair_tile=pair_tile,
+        max_pass_budget=max_pass_budget, group=group,
+    )
+
+
+def stream_slabs(
+    tri_table,
+    *,
+    aabb_host,
+    stride: int,
+    z_extent: int,
+    is_blend: bool,
+    pair_tile: int = PAIR_TILE,
+    max_pass_budget: int = MAX_PASS_BUDGET,
+    device_outputs: bool = False,
+    group: int = PLAN_GROUP,
+):
+    """Slab streaming over a device-resident (N, 24) triangle table in voxel
+    space.  `aabb_host` is the host (vmin, vmax) pair of per-triangle voxel
+    AABBs (vmax exclusive, x/y grid-clamped) for the first len(vmin) rows.
+
+    Yields (xyz, argb) numpy arrays per slab, or with device_outputs=True
+    (xyz, argb, count) with xyz/argb still on the device, count-padded."""
+    vmin_h, vmax_h = aabb_host
+    n_sub = vmin_h.shape[0]
+    max_budget = min(pair_tile, max_pass_budget)
+    slot_budget = 4 * max_budget
+
+    order, segments = plan_mesh_device(
+        tri_table, n_sub, stride, z_extent, slot_budget, group=group
+    )
+    if order is None and segments is not None:
+        return  # empty mesh
+    if order is None:
+        # too many slabs for the device planner: plan on the host
+        order_np, segments = plan_mesh(vmin_h, vmax_h, stride, z_extent, slot_budget)
+        if order_np is None:
+            return
+        order = torch.from_numpy(order_np.astype(np.int64)).to(tri_table.device)
+        group = 1
+    table = gather_ordered(tri_table, order, segments[-1].r1, group)
+    del order
+
+    by_slab: dict[tuple[int, int], list] = {}
+    for seg in segments:
+        by_slab.setdefault((seg.z_lo, seg.z_hi), []).append(seg)
+    slab_list = list(by_slab.items())
+
+    i = 0
+    while i < len(slab_list):
+        # one wave: every pass of several slabs, then ONE counts read-back
+        wave, wave_rows = [], 0
+        while i < len(slab_list) and (not wave or wave_rows < WAVE_CAP_ROWS):
+            (z_lo, z_hi), slab_segs = slab_list[i]
+            i += 1
+            outs = []
+            for expand, budget, r0, n_rows, local_base, wide in _schedule_passes(
+                slab_segs, max_budget
+            ):
+                outs.append(fused_pass(
+                    table, r0, n_rows, local_base, z_lo, z_hi, stride,
+                    expand=expand, budget=budget, wide_local=wide,
+                ))
+                wave_rows += budget
+            wave.append((z_lo, z_hi, outs))
+
+        counts = torch.cat([o[5] for _, _, outs in wave for o in outs]).tolist()
+        ci = iter(counts)
+        merged = []
+        for z_lo, z_hi, outs in wave:
+            live = []
+            for key, w, r, g, b, _ in outs:
+                c = next(ci)
+                if _dbg.DEBUG:
+                    _dbg.check_count(c, key.shape[0], "pass")
+                if c:
+                    live.append((key[:c], (w[:c], r[:c], g[:c], b[:c])))
+            del outs
+            if not live:
+                continue
+            while sum(x[0].shape[0] for x in live) > MERGE_CAP:
+                before = sum(x[0].shape[0] for x in live)
+                groups = plan_fold_chunks([x[0].shape[0] for x in live], MERGE_CAP)
+                if len(groups) == 1:
+                    break
+                live = [_fold_outputs([live[j] for j in g], is_blend) for g in groups]
+                if sum(x[0].shape[0] for x in live) >= before:
+                    break  # folding cannot shrink further
+            keys = torch.cat([x[0] for x in live])
+            chans = tuple(torch.cat([x[1][j] for x in live]) for j in range(4))
+            del live
+            merged.append((z_lo, z_hi, _merge_pass(keys, chans, z_lo, is_blend, stride)))
+
+        mcounts = (
+            torch.cat([m[2][2] for m in merged]).tolist() if merged else []
+        )
+        for (z_lo, z_hi, (xyz, argb, _)), count in zip(merged, mcounts):
+            _log.spam(f"Voxelized slab z[{z_lo},{z_hi}) -> {count}")
+            if _dbg.DEBUG:
+                _dbg.check_count(count, xyz.shape[0], "merge")
+                _dbg.check_slab_output(
+                    _pull(xyz, count), _pull(argb, count), count,
+                    res_xy=stride, z_extent=z_extent, z_lo=z_lo, z_hi=z_hi,
+                )
+            if count:
+                if device_outputs:
+                    yield xyz, argb, count
+                else:
+                    yield _pull(xyz, count), _pull(argb, count)

@@ -1,0 +1,157 @@
+"""Build and load the hand-written Hopper kernels (csrc/*.cu).
+
+The sources are compiled by `nvcc` into one shared library with a plain C
+interface and loaded with ctypes: no PyTorch headers, so a build takes
+seconds.  The library is keyed by a hash of the sources and flags and lives
+in `build/o2v_kernels/` beside the package; it is built on first use, i.e.
+when a CUDA tensor first reaches a kernel wrapper.  Importing this module
+needs neither nvcc nor a card.
+
+Every C launcher returns its `cudaGetLastError()`; `check` raises on any
+non-zero code, so a refused launch never passes silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "o2v_kernels"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "--fmad=false", "-std=c++17", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+#: Sentinel key of dead rows; sorts to the end (csrc O2V_INV).
+INVALID_KEY = (1 << 31) - 1
+
+#: Rows per compaction tile (csrc/o2v_compact.cuh COMPACT_TILE).
+COMPACT_TILE = 256
+
+#: Launch counts of the three main-path kernels.  Each wrapper adds one
+#: where it launches its kernel and nowhere else.
+LAUNCHES = {"fused_pass": 0, "segment_combine": 0, "pack_exact": 0}
+
+#: Seconds the last build took (None: loaded from an existing build).
+BUILD_SECONDS = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # keys_out, w, r, g, b (out), count_out, slot scratch x5, tile counts,
+    # tile offsets, table, n_table_rows, r0, n_rows, local_base, z_lo, z_hi,
+    # stride, log2_expand, budget, wide_local, stream
+    "o2v_fused_pass": [_P] * 6 + [_P] * 5 + [_P, _P] + [_P] + [_I] * 10 + [_P],
+    # keys, w, r, g, b, out x5, tile key_first, key_last, agg (4 x tiles),
+    # carry (4 x tiles), n, is_blend, stream
+    "o2v_segment_combine": [_P] * 5 + [_P] * 5 + [_P] * 4 + [_I, _I, _P],
+    # keys, w, r, g, b, out x5, count_out, tile counts, tile offsets, n,
+    # stream
+    "o2v_pack_exact": [_P] * 5 + [_P] * 5 + [_P, _P, _P] + [_I, _P],
+}
+
+_LIB = None
+_LOCK = threading.Lock()
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libo2v_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into the shared library unless it exists."""
+    global BUILD_SECONDS
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", str(tmp), *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, so)
+    BUILD_SECONDS = time.perf_counter() - t0
+    return so
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.o2v_error_string.argtypes = [ctypes.c_int]
+            handle.o2v_error_string.restype = ctypes.c_char_p
+            _LIB = handle
+    return _LIB
+
+
+def check(err: int, what: str):
+    if err != 0:
+        msg = lib().o2v_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(name: str, *tensors):
+    """Shape-independent checks shared by the wrappers: every tensor on one
+    CUDA device and contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor is not contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev

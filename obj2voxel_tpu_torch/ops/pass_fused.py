@@ -1,0 +1,153 @@
+"""K1: one fused voxelization pass with ordered compaction
+(csrc/fused_pass.cu).
+
+The counterpart of obj2voxel_tpu/ops/pass_fused.py `fused_pass_pallas` with
+`pack=True`, for untextured passes.  Rows [r0, r0 + n_rows) of the
+plan-ordered (M, 24) triangle table each own `expand` = 2^k pair slots; slot
+s belongs to row s >> k and has within-AABB rank local_base + (s & (2^k-1)).
+Per slot: the row's voxel AABB (x/y clamped to [0, stride), z to
+[z_lo, z_hi)), the rank decoded to a voxel, the six-plane clip with the
+clipped area as weight, the key (vz - z_lo) * stride^2 + vy * stride + vx
+and the premultiplied channels (w, w*r, w*g, w*b).  The live pairs (w > 0)
+come back compacted in slot order with an exact count; rows past the count
+are (INVALID, 0).
+
+`wide_local` passes (giant triangles whose rank can reach 2^23) decode the
+rank with exact integer div/mod (obj2voxel_tpu/engine.py:466-470); all
+others use the float-reciprocal divmod of the TPU kernel.
+
+`fused_pass` takes the plain version for CPU tensors and launches the CUDA
+kernel for CUDA tensors; `fused_pass_ref` is the plain version, built from
+the XLA branch of obj2voxel_tpu/engine.py `_bucket_pass` and ops/clip.py.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .clip import clip_channels
+
+def _divmod_f(lf, sf):
+    """Float-reciprocal divmod with one correction step: exact for
+    0 <= lf < 2^23."""
+    q = torch.floor(lf * (1.0 / sf))
+    r = lf - q * sf
+    q = torch.where(r < 0, q - 1.0, torch.where(r >= sf, q + 1.0, q))
+    return lf - q * sf, q
+
+
+def fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride, *,
+                   expand, budget, wide_local):
+    """Plain version of the pass; same contract as `fused_pass`."""
+    dev = table.device
+    rows = table[r0 : r0 + n_rows]
+    tmin, size = [], []
+    los = (0, 0, z_lo)
+    his = (stride, stride, z_hi)
+    for a in range(3):
+        va = torch.minimum(torch.minimum(rows[:, a], rows[:, a + 3]), rows[:, a + 6])
+        vb = torch.maximum(torch.maximum(rows[:, a], rows[:, a + 3]), rows[:, a + 6])
+        t_lo = torch.clamp(torch.floor(va).to(torch.int64), los[a], his[a])
+        t_hi = torch.clamp(torch.floor(vb).to(torch.int64) + 1, los[a], his[a])
+        tmin.append(t_lo)
+        size.append(torch.clamp(t_hi - t_lo, min=0))
+    sx = torch.clamp(size[0], min=1)
+    sy = torch.clamp(size[1], min=1)
+    vol = size[0] * size[1] * size[2]
+
+    # only slots inside their row's AABB volume can be live; the rest clip
+    # to zero weight, so they are never computed
+    slot = torch.arange(n_rows * expand, dtype=torch.int64, device=dev)
+    row = slot // expand
+    local = local_base + (slot & (expand - 1))
+    keep = local < vol[row]
+    slot, row, local = slot[keep], row[keep], local[keep]
+
+    if wide_local:
+        rest = local // sx[row]
+        vx = tmin[0][row] + local % sx[row]
+        vy = tmin[1][row] + rest % sy[row]
+        vz = tmin[2][row] + rest // sy[row]
+    else:
+        mx, rest = _divmod_f(local.to(torch.float32), sx[row].to(torch.float32))
+        my, mz = _divmod_f(rest, sy[row].to(torch.float32))
+        vx = tmin[0][row] + mx.to(torch.int64)
+        vy = tmin[1][row] + my.to(torch.int64)
+        vz = tmin[2][row] + mz.to(torch.int64)
+
+    vox = torch.stack([vx, vy, vz]).to(torch.float32)
+    w = clip_channels(rows[row, 0:16].T, vox)[0][0]
+    live = w > 0
+    n = int(live.sum())
+    w = w[live]
+    rgb = rows[row[live], 17:20]
+    key = ((vz - z_lo) * (stride * stride) + vy * stride + vx)[live]
+
+    out_k = torch.full((budget,), _cuda.INVALID_KEY, dtype=torch.int32, device=dev)
+    out_k[:n] = key.to(torch.int32)
+    outs = []
+    for c in (w, w * rgb[:, 0], w * rgb[:, 1], w * rgb[:, 2]):
+        o = torch.zeros(budget, dtype=torch.float32, device=dev)
+        o[:n] = c
+        outs.append(o)
+    count = torch.tensor([n], dtype=torch.int32, device=dev)
+    return (out_k, *outs, count)
+
+
+def _check(table, r0, n_rows, local_base, z_lo, z_hi, stride, expand, budget,
+           wide_local):
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != 24:
+        raise ValueError("fused_pass: table must be a (M, 24) float32 tensor")
+    if expand < 1 or expand & (expand - 1) or budget % expand:
+        raise ValueError(f"fused_pass: bad expand {expand} for budget {budget}")
+    if not 0 < budget < 1 << 31:
+        raise ValueError(f"fused_pass: bad budget {budget}")
+    if not 0 <= n_rows <= budget // expand:
+        raise ValueError(f"fused_pass: {n_rows} rows exceed the budget")
+    if r0 < 0 or r0 + n_rows > table.shape[0]:
+        raise ValueError("fused_pass: row range outside the table")
+    if not 0 <= z_lo <= z_hi or stride <= 0:
+        raise ValueError("fused_pass: bad slab bounds")
+    if (z_hi - z_lo) * stride * stride >= 1 << 31:
+        raise ValueError("fused_pass: slab keys overflow int32")
+    if local_base < 0 or local_base + budget > 1 << 31:
+        raise ValueError("fused_pass: slot rank overflows int32")
+    if not wide_local and local_base + expand > 1 << 23:
+        raise ValueError("fused_pass: float rank decode needs ranks < 2^23")
+
+
+def fused_pass(table, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
+               budget, wide_local=False):
+    """Run one pass over table rows [r0, r0 + n_rows).
+
+    Returns (key (budget,) int32, w, wr, wg, wb (budget,) float32, count (1,)
+    int32): the live pairs in slot order, then (INVALID, 0)."""
+    r0, n_rows, local_base = int(r0), int(n_rows), int(local_base)
+    z_lo, z_hi, stride = int(z_lo), int(z_hi), int(stride)
+    _check(table, r0, n_rows, local_base, z_lo, z_hi, stride, expand, budget,
+           wide_local)
+    if table.device.type == "cpu":
+        return fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride,
+                              expand=expand, budget=budget,
+                              wide_local=wide_local)
+    dev = _cuda.require_cuda("fused_pass", table)
+    key = torch.empty(budget, dtype=torch.int32, device=dev)
+    chans = [torch.empty(budget, dtype=torch.float32, device=dev) for _ in range(4)]
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    s_key = torch.empty_like(key)
+    s_chans = [torch.empty_like(c) for c in chans]
+    n_tiles = -(-budget // _cuda.COMPACT_TILE)
+    tile_counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    tile_offsets = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    err = _cuda.lib().o2v_fused_pass(
+        key.data_ptr(), *(c.data_ptr() for c in chans), count.data_ptr(),
+        s_key.data_ptr(), *(c.data_ptr() for c in s_chans),
+        tile_counts.data_ptr(), tile_offsets.data_ptr(),
+        table.data_ptr(), table.shape[0], r0, n_rows, local_base, z_lo, z_hi,
+        stride, expand.bit_length() - 1, budget, int(bool(wide_local)),
+        _cuda.stream_ptr(dev),
+    )
+    _cuda.check(err, "fused_pass")
+    _cuda.LAUNCHES["fused_pass"] += 1
+    return (key, *chans, count)
