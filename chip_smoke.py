@@ -1,16 +1,27 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from obj2voxel_tpu_torch/csrc, holds
-each against its plain PyTorch version on the card, drives the main path
-(`stream_slabs` on the 2M-triangle sphere at 1024^3, BLEND, as bench.py
-does) and checks the output against known voxel counts.
+each against its plain PyTorch version on the card, drives the two main
+paths at real size -- `stream_slabs` on the 2M-triangle sphere at 1024^3,
+untextured BLEND as bench.py runs it, and the same table textured (one
+4096^2 REPEAT texture) under MAX -- and checks the outputs against known
+voxel counts, the CPU run of the same code, and the closed forms.
 
     python3 chip_smoke.py             # all phases; needs one CUDA device
-    python3 chip_smoke.py --phases 1,2,3,4
+    python3 chip_smoke.py --phases 1,2,9
 
-Prints one line per phase, a JSON line with the kernels' errors and times,
-and as its last line {"ok": true, "device": {...}}.  Any failure raises and
-exits non-zero before that line is printed.
+Phases: 1 build; 2 K1, 3 K2, 4 K3, 9 K4, 10 K5 against their plain
+versions; 5 untextured and 11 textured end to end, card against CPU; 6 the
+unit-cube closed forms; 7 untextured and 12 textured real size; 8 kernel
+timings beside each kernel's bound.  Prints one line per phase, a JSON line
+with the kernels' launches, errors, times and bounds, and as its last line
+{"ok": true, "device": {...}}.  Any failure raises and exits non-zero before
+that line is printed.
+
+Bounds (`bound_ms`): the larger of the bytes the kernel must move (each
+input read once, each output written once) over 3.35 TB/s and its FP32
+operations over 67 TFLOP/s (the H100 SXM's published peaks at 700 W).  The
+clip's operations are counted on this run's pairs (`clip_flops`).
 """
 
 from __future__ import annotations
@@ -19,7 +30,9 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -30,10 +43,17 @@ SPHERE_RES = 1024
 # multiply-add contraction, like the port).  Grazing pairs at voxel faces
 # fall either side of the clip's epsilon tests under other roundings: a TPU
 # run recorded 4,936,253, and the jitted XLA CPU clip, which contracts
-# multiply-adds into FMAs, gives 4,936,300.
+# multiply-adds into FMAs, gives 4,936,300.  The textured table is the same
+# geometry, and K4's area is K1's, so it gives the same voxel set.
 SPHERE_VOXELS = 4_936_255
 BUDGET = 1 << 21
 STREAM = 1 << 22
+INV = (1 << 31) - 1
+TEXTURE_SIDE = 4096
+PALETTE = 64
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 KERNELS = {
     "fused_pass": ("obj2voxel_tpu_torch/csrc/fused_pass.cu",
@@ -42,7 +62,17 @@ KERNELS = {
                         "obj2voxel_tpu/ops/combine_pallas.py:126"),
     "pack_exact": ("obj2voxel_tpu_torch/csrc/pack_exact.cu",
                    "obj2voxel_tpu/ops/pack_pallas.py:285"),
+    "clip_pairs": ("obj2voxel_tpu_torch/csrc/clip_pairs.cu",
+                   "obj2voxel_tpu/ops/clip_pallas.py:64"),
+    "pack_channels": ("obj2voxel_tpu_torch/csrc/pack_channels.cu",
+                      "obj2voxel_tpu/ops/pack_pallas.py:377"),
 }
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "untextured": ("fused_pass", "segment_combine", "pack_exact"),
+    "textured": ("segment_combine", "pack_exact", "clip_pairs"),
+}
+ALL_PHASES = set(range(1, 13))
 
 
 def fail(msg):
@@ -76,28 +106,114 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 
-def sphere_table(n_tris, res):
+def bound(stats, name, n_bytes, n_ops):
+    """Record the least time the card could take for the work."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    stats[name].update(
+        bound_ms=max(by_bytes, by_ops),
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
+        bytes=int(n_bytes), ops=int(n_ops),
+    )
+
+
+def clip_flops(tri, vox, live, nch):
+    """FP32 operations the clip runs on the pairs where `live` (the op model
+    of ops/clip.py and csrc/o2v_clip.cuh): 3 plane offsets; per plane one
+    subtraction per polygon vertex and 4 + 3 nch per edge crossing the
+    plane; per fan triangle of the clipped polygon 23, plus 10 for the UV
+    centroid and 2 final divides when nch = 5."""
+    from obj2voxel_tpu_torch.constants import EPSILON
+    from obj2voxel_tpu_torch.ops.clip import _clip_one_plane
+
+    tri, vox = tri[:, live], vox[:, live]
+
+    def slot(i):
+        return torch.cat([tri[3 * i : 3 * i + 3], tri[9 + 2 * i : 11 + 2 * i]])
+
+    s0 = slot(0)
+    slots = [s0, slot(1), slot(2), s0]
+    count = torch.full((1, tri.shape[1]), 3, dtype=torch.int32, device=tri.device)
+    ops = 3 * tri.shape[1]
+    for hi in (False, True):
+        for axis in range(3):
+            plane = vox[axis : axis + 1] + (1.0 if hi else 0.0)
+            vals = [s[axis] for s in slots]
+            valid = [count > i for i in range(len(slots))]
+            all_lo = torch.ones_like(valid[0])
+            for i in range(len(slots) - 1):
+                all_lo &= (vals[i] < plane) | ~valid[i]
+            inside = 0
+            for i in range(len(slots) - 1):
+                gap = plane - vals[i]
+                ins = (all_lo | ((vals[i] < plane) & (gap >= EPSILON))) if hi else (
+                    (gap < EPSILON) & ~all_lo)
+                inside = inside + (ins & valid[i]).to(torch.int64)
+            ops += int(count.sum())
+            slots, new_count = _clip_one_plane(slots, count, axis, plane, keep_hi=not hi)
+            ops += int((new_count.to(torch.int64) - inside).sum()) * (4 + 3 * nch)
+            count = new_count
+    pieces = int(torch.clamp(count.to(torch.int64) - 2, min=0).sum())
+    ops += pieces * (23 + (10 if nch == 5 else 0))
+    if nch == 5:
+        ops += 2 * tri.shape[1]
+    return ops
+
+
+def sphere_table(n_tris, res, textured=False):
     """bench.py's device-resident table: the sphere in voxel space, padded to
-    a power of two, plus its host AABBs."""
-    from bench import make_sphere_mesh
-    from obj2voxel_tpu_torch.constants import ANTI_BLEED
+    a power of two, plus its host AABBs.  With textured=True the UV columns
+    hold per-vertex spherical UVs, every row is TRI_TEXTURED with texture 0,
+    and the geometry is unchanged."""
+    from obj2voxel_tpu_torch.constants import ANTI_BLEED, TRI_TEXTURED
     from obj2voxel_tpu_torch.engine import _pow2_at_least
     from obj2voxel_tpu_torch.soup import build_tri_table
+    from obj2voxel_tpu_torch.utils.meshes import make_sphere_mesh
 
-    tris = make_sphere_mesh(n_tris)
+    tris, uvs = make_sphere_mesh(n_tris, uvs=True)
     n = tris.shape[0]
     scale = (res - ANTI_BLEED) / 2.0
     tris = (tris + 1.0) * np.float32(scale) + np.float32(ANTI_BLEED / 2.0)
     n_pad = _pow2_at_least(n)
     verts = np.zeros((n_pad, 3, 3), np.float32)
     verts[:n] = tris
-    table = build_tri_table(
-        verts, np.zeros((n_pad, 3, 2), np.float32), np.ones(n_pad, np.int32),
-        np.ones((n_pad, 3), np.float32), np.full(n_pad, -1, np.int32),
-    )
+    uv_pad = np.zeros((n_pad, 3, 2), np.float32)
+    if textured:
+        uv_pad[:n] = uvs
+        types, tex = np.full(n_pad, TRI_TEXTURED, np.int32), np.zeros(n_pad, np.int32)
+    else:
+        types, tex = np.ones(n_pad, np.int32), np.full(n_pad, -1, np.int32)
+    table = build_tri_table(verts, uv_pad, types, np.ones((n_pad, 3), np.float32), tex)
     vmin = np.clip(np.floor(tris.min(axis=1)), 0, res).astype(np.int64)
     vmax = np.clip(np.floor(tris.max(axis=1)) + 1, 0, res).astype(np.int64)
     return table, (vmin, vmax)
+
+
+def palette_pool(seed=12):
+    """One TEXTURE_SIDE^2 REPEAT texture whose texels are drawn from PALETTE
+    opaque colors; returns (TexturePool, palette uint32)."""
+    from obj2voxel_tpu_torch import TexturePool
+    from obj2voxel_tpu_torch.constants import UV_WRAP
+
+    rng = np.random.default_rng(seed)
+    palette = (0xFF000000 | rng.integers(0, 1 << 24, PALETTE)).astype(np.uint32)
+    texels = palette[rng.integers(0, PALETTE, (TEXTURE_SIDE, TEXTURE_SIDE))]
+    pool = TexturePool()
+    pool.add(texels, UV_WRAP)
+    return pool, palette
+
+
+def sphere_pass(table, aabb, pass_index):
+    """The plan-ordered sphere table and the descriptor of one of its
+    2^21-slot passes at expand 8 (the shape of the main path's passes)."""
+    from obj2voxel_tpu_torch.ops.plan_device import gather_ordered, plan_mesh_device
+
+    order, segs = plan_mesh_device(table, aabb[0].shape[0], SPHERE_RES,
+                                   SPHERE_RES, 4 * BUDGET, group=8)
+    ordered = gather_ordered(table, order, segs[-1].r1, 8)
+    seg = segs[pass_index(len(segs))]
+    r0 = min(s.r0 for s in segs if (s.z_lo, s.z_hi) == (seg.z_lo, seg.z_hi))
+    return ordered, r0, seg.z_lo, seg.z_hi
 
 
 def compare_pass(got, want, what):
@@ -117,17 +233,11 @@ def compare_pass(got, want, what):
 
 def phase_k1(stats):
     from obj2voxel_tpu_torch.ops.pass_fused import fused_pass, fused_pass_ref
-    from obj2voxel_tpu_torch.ops.plan_device import gather_ordered, plan_mesh_device
 
     t0 = time.perf_counter()
-    table_np, _ = sphere_table(SPHERE_TRIS, SPHERE_RES)
-    table = torch.from_numpy(table_np).cuda()
-    order, segs = plan_mesh_device(table, SPHERE_TRIS, SPHERE_RES, SPHERE_RES,
-                                   4 * BUDGET, group=8)
-    ordered = gather_ordered(table, order, segs[-1].r1, 8)
-    seg = segs[len(segs) // 2]
-    z_lo, z_hi = seg.z_lo, seg.z_hi
-    r0 = min(s.r0 for s in segs if (s.z_lo, s.z_hi) == (z_lo, z_hi))
+    table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES)
+    ordered, r0, z_lo, z_hi = sphere_pass(torch.from_numpy(table_np).cuda(), aabb,
+                                          lambda n: n // 2)
     details, err = [], 0.0
     for expand in (1, 8, 64, BUDGET):
         n_rows = min(BUDGET // expand, ordered.shape[0] - r0)
@@ -141,7 +251,17 @@ def phase_k1(stats):
             stats["fused_pass"].update(
                 ms=cuda_ms(lambda: fused_pass(*args, **kw)),
                 plain_ms=cuda_ms(lambda: fused_pass_ref(*args, **kw), reps=3),
+                library_ms=None,
             )
+            from obj2voxel_tpu_torch.engine import pass_pairs
+
+            tri, vox, _, _, valid = pass_pairs(ordered.T.contiguous(), *args[1:], **kw)
+            # the 12 columns read of each row (xyz 0:9, rgb 17:20), 20 B per
+            # live pair written and the count; the clip, the AABB and rank
+            # decode (~25) and the premultiply (3) per slot in its AABB
+            bound(stats, "fused_pass", n_rows * 48 + n * 20 + 4,
+                  clip_flops(tri, vox, valid, 3) + 28 * int(valid.sum()))
+            del tri, vox, valid
     # one giant slanted triangle at 2048^3: AABB 2048 x 2048 x 4 = 2^24 slots
     giant = np.zeros((1, 24), np.float32)
     giant[0, 0:9] = [0.5, 0.5, 0.5, 2047.5, 0.5, 3.5, 0.5, 2047.5, 3.5]
@@ -163,16 +283,15 @@ def phase_k1(stats):
 def k2_streams(rng):
     """Key-sorted streams: runs of 1..5000 crossing tile edges (with weight
     ties), one run spanning everything, all INVALID."""
-    inv = (1 << 31) - 1
     lengths = rng.integers(1, 5001, size=STREAM // 1000)
     lengths[::7] = rng.integers(1, 4, size=lengths[::7].shape)
     keys = np.repeat(np.arange(lengths.size, dtype=np.int64) * 3, lengths)[:STREAM]
-    keys[-STREAM // 10:] = inv
+    keys[-STREAM // 10:] = INV
     mixed = keys.astype(np.int32)
     return {
         "runs": mixed,
         "one_run": np.full(STREAM, 12345, np.int32),
-        "all_invalid": np.full(STREAM, inv, np.int32),
+        "all_invalid": np.full(STREAM, INV, np.int32),
     }
 
 
@@ -203,82 +322,259 @@ def phase_k2(stats):
                 elif not torch.equal(g, x):
                     fail(f"K2 {name} max: values differ")
             details.append(f"{name}/{'blend' if blend else 'max'}:"
-                           f"{int((got[0] != (1 << 31) - 1).sum())}")
+                           f"{int((got[0] != INV).sum())}")
             if name == "runs" and blend:
+                live = keys != INV
+                data = torch.stack([w, *rgb], dim=1)[live]
+                lengths = torch.unique_consecutive(keys[live], return_counts=True)[1]
                 stats["segment_combine"].update(
                     ms=cuda_ms(lambda: segment_combine(keys, w, *rgb, True)),
                     plain_ms=cuda_ms(lambda: segment_combine_ref(keys, w, *rgb, True)),
+                    library_ms=cuda_ms(lambda: torch.segment_reduce(
+                        data, "sum", lengths=lengths)),
                 )
+                # 20 B per row in and out; 4 additions per live row
+                bound(stats, "segment_combine", STREAM * 40, 4 * int(live.sum()))
     stats["segment_combine"]["max_abs_err"] = err
     phase("3 K2 segment_combine vs plain", t0, " ".join(details))
 
 
-def phase_k3(stats):
-    from obj2voxel_tpu_torch.ops.pack_pallas import pack_exact, pack_exact_ref
-
+def pack_phase(stats, name, kernel, plain, label):
+    """K3 and K5: the kernel against its plain version at STREAM rows with
+    live fractions 0, 1/4 and 1, timed at 1/4 beside boolean-mask indexing."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(3)
     details = []
     for frac in (0.0, 0.25, 1.0):
         keys_np = rng.integers(0, 1 << 30, STREAM).astype(np.int32)
-        keys_np[rng.random(STREAM) >= frac] = (1 << 31) - 1
+        keys_np[rng.random(STREAM) >= frac] = INV
         keys = torch.from_numpy(keys_np).cuda()
         vals = tuple(torch.from_numpy(rng.random(STREAM, dtype=np.float32)).cuda()
                      for _ in range(4))
-        gk, gv, gc = pack_exact(keys, vals)
-        wk, wv, wc = pack_exact_ref(keys, vals)
+        gk, gv, gc = kernel(keys, vals)
+        wk, wv, wc = plain(keys, vals)
         if not (torch.equal(gc, wc) and torch.equal(gk, wk)
                 and all(torch.equal(a, b) for a, b in zip(gv, wv))):
-            fail(f"K3 live fraction {frac}: output differs")
+            fail(f"{label} live fraction {frac}: output differs")
         details.append(f"{frac}:{int(gc.item())}")
         if frac == 0.25:
-            stats["pack_exact"].update(
-                ms=cuda_ms(lambda: pack_exact(keys, vals)),
-                plain_ms=cuda_ms(lambda: pack_exact_ref(keys, vals)),
+            rows = torch.stack([keys, *(v.view(torch.int32) for v in vals)])
+            stats[name].update(
+                ms=cuda_ms(lambda: kernel(keys, vals)),
+                plain_ms=cuda_ms(lambda: plain(keys, vals)),
+                library_ms=cuda_ms(lambda: rows[:, rows[0] != INV]),
             )
-    stats["pack_exact"]["max_abs_err"] = 0.0
-    phase("4 K3 pack_exact vs plain", t0, " ".join(details))
+            # every row read, the live rows (K5: up to the padded count)
+            # written, and the count
+            bound(stats, name, STREAM * 20 + int(gc.item()) * 20 + 4, 0)
+    stats[name]["max_abs_err"] = 0.0
+    phase(label, t0, " ".join(details))
 
 
-def voxel_dict(soup, device, **kw):
-    from obj2voxel_tpu_torch import voxelize_soup
+def phase_k3(stats):
+    from obj2voxel_tpu_torch.ops.pack_pallas import pack_exact, pack_exact_ref
 
+    pack_phase(stats, "pack_exact", pack_exact, pack_exact_ref,
+               "4 K3 pack_exact vs plain")
+
+
+def phase_k5(stats):
+    from obj2voxel_tpu_torch.ops.pack_pallas import pack_channels, pack_channels_ref
+
+    pack_phase(stats, "pack_channels", pack_channels, pack_channels_ref,
+               "10 K5 pack_channels vs plain")
+
+
+def grazing_pairs(n, seed=9):
+    """Pairs whose triangle lies in, or within 1e-5 of, a voxel face, plus
+    the boundary case of a plane on a face (it belongs to the hi voxel)."""
+    rng = np.random.default_rng(seed)
+    vox = rng.integers(0, 8, size=(n, 3)).astype(np.float32)
+    verts = vox[:, None, :] + rng.uniform(0, 1, size=(n, 3, 3))
+    axis = rng.integers(0, 3, size=n)
+    offset = rng.choice([0.0, 1.0, 1e-5, -1e-5, 1 + 1e-5, 1 - 1e-5, 2 ** -16], size=n)
+    verts[np.arange(n), :, axis] = (vox[np.arange(n), axis] + offset)[:, None]
+    verts[:2] = [[6.0, 5.2, 5.2], [6.0, 5.8, 5.2], [6.0, 5.2, 5.8]]
+    vox[0], vox[1] = (6, 5, 5), (5, 5, 5)
+    tri = np.zeros((16, n), np.float32)
+    tri[0:9] = verts.reshape(n, 9).T
+    tri[9:15] = rng.uniform(-2, 3, size=(n, 6)).T
+    vox4 = np.zeros((4, n), np.float32)
+    vox4[:3] = vox.T
+    return torch.from_numpy(tri).cuda(), torch.from_numpy(vox4).cuda()
+
+
+def compare_clip(got, want, what):
+    """K4 outputs: w, u and v equal to the plain version's bit for bit (both
+    round every float32 operation to nearest, in the same order); returns
+    (occupied pairs, max abs error)."""
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        fail(f"{what}: differs from the plain version (max abs error {err})")
+    return int((want[0] > 0).sum()), err
+
+
+def phase_k4(stats):
+    from obj2voxel_tpu_torch.engine import pass_pairs
+    from obj2voxel_tpu_torch.ops.clip_pallas import clip_pairs, clip_pairs_ref
+
+    t0 = time.perf_counter()
+    table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES, textured=True)
+    ordered, r0, z_lo, z_hi = sphere_pass(torch.from_numpy(table_np).cuda(), aabb,
+                                          lambda n: n // 2)
+    n_rows = min(BUDGET // 8, ordered.shape[0] - r0)
+    tri, vox, _, _, valid = pass_pairs(ordered.T.contiguous(), r0, n_rows, 0,
+                                       z_lo, z_hi, SPHERE_RES, expand=8,
+                                       budget=BUDGET, wide_local=False)
+    occ, err = compare_clip(clip_pairs(tri, vox), clip_pairs_ref(tri, vox),
+                            "K4 sphere pass")
+    gtri, gvox = grazing_pairs(4096)
+    gocc, gerr = compare_clip(clip_pairs(gtri, gvox), clip_pairs_ref(gtri, gvox),
+                              "K4 grazing pairs")
+    edge = clip_pairs(gtri[:, :2].contiguous(), gvox[:, :2].contiguous())
+    if not (float(edge[0, 0]) > 0 and float(edge[0, 1]) == 0.0):
+        fail("K4: a plane on a voxel face must belong to the hi voxel")
+    stats["clip_pairs"].update(
+        ms=cuda_ms(lambda: clip_pairs(tri, vox)),
+        plain_ms=cuda_ms(lambda: clip_pairs_ref(tri, vox), reps=3),
+        library_ms=None, max_abs_err=max(err, gerr),
+    )
+    # 72 B read (tri rows 0:15, vox rows 0:3) and 16 B written per pair;
+    # the clip's operations on all pairs (the kernel clips every slot of
+    # the budget)
+    everything = torch.ones_like(valid)
+    bound(stats, "clip_pairs", BUDGET * 88, clip_flops(tri, vox, everything, 5))
+    phase("9 K4 clip_pairs vs plain", t0,
+          f"sphere pass {BUDGET} pairs, {occ} occupied; grazing 4096 pairs, "
+          f"{gocc} occupied; max abs err {max(err, gerr):.3g}")
+
+
+def voxel_dict(gen):
     out = {}
-    for xyz, argb in voxelize_soup(soup, device=device, **kw):
+    for xyz, argb in gen:
         for p, c in zip(xyz.tolist(), argb.tolist()):
             out[tuple(p)] = c
     return out
 
 
-def phase_e2e():
-    from obj2voxel_tpu_torch import BLEND_STRATEGY, MAX_STRATEGY, TriangleSoup
+def compare_voxels(gpu, cpu, blend, what):
+    if set(gpu) != set(cpu):
+        fail(f"{what}: voxel sets differ ({len(gpu)} vs {len(cpu)})")
+    a = np.array([gpu[k] for k in cpu], np.uint32).view(np.uint8).astype(np.int16)
+    b = np.array(list(cpu.values()), np.uint32).view(np.uint8).astype(np.int16)
+    lsb = int(np.abs(a - b).max()) if a.size else 0
+    if lsb > (1 if blend else 0):
+        fail(f"{what}: colors differ by {lsb} LSB")
+    return f"{len(gpu)} voxels, {lsb} LSB"
 
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(5)
-    n = 20_000
-    centers = rng.random((n, 1, 3), dtype=np.float32)
-    verts = centers + rng.uniform(-0.01, 0.01, (n, 3, 3)).astype(np.float32)
-    soup = TriangleSoup(
-        verts=verts.astype(np.float32), uvs=np.zeros((n, 3, 2), np.float32),
-        types=np.full(n, 2, np.int32), rgb=rng.random((n, 3), dtype=np.float32),
-        tex=np.full(n, -1, np.int32),
+
+def random_soup(n, textured, seed):
+    """n seeded triangles ~5 voxels wide at 256^3; textured: 70% sample one
+    of four textures (CLAMP and REPEAT, odd sizes, UVs in [-2, 3])."""
+    from obj2voxel_tpu_torch import TexturePool, TriangleSoup
+    from obj2voxel_tpu_torch.constants import (
+        TRI_TEXTURED, TRI_UNTEXTURED, UV_CLAMP, UV_WRAP,
     )
+
+    rng = np.random.default_rng(seed)
+    centers = rng.random((n, 1, 3), dtype=np.float32)
+    verts = (centers + rng.uniform(-0.01, 0.01, (n, 3, 3))).astype(np.float32)
+    types = np.full(n, TRI_UNTEXTURED, np.int32)
+    tex = np.full(n, -1, np.int32)
+    pool = TexturePool()
+    if textured:
+        sel = rng.random(n) < 0.7
+        types[sel] = TRI_TEXTURED
+        tex[sel] = rng.integers(0, 4, int(sel.sum()))
+        for i, (h, w) in enumerate([(3, 5), (64, 17), (1, 9), (129, 255)]):
+            img = (0xFF000000 | rng.integers(0, 1 << 24, (h, w))).astype(np.uint32)
+            pool.add(img, UV_CLAMP if i % 2 else UV_WRAP)
+    soup = TriangleSoup(verts=verts, uvs=rng.uniform(-2, 3, (n, 3, 2)).astype(np.float32),
+                        types=types, rgb=rng.random((n, 3), dtype=np.float32), tex=tex)
+    return soup, pool
+
+
+def e2e_soup(textured, seed):
+    from obj2voxel_tpu_torch import BLEND_STRATEGY, MAX_STRATEGY, voxelize_soup
+
+    soup, pool = random_soup(20_000, textured, seed)
     bounds = (np.zeros(3, np.float32), np.ones(3, np.float32))
     details = []
     for strategy, name in ((MAX_STRATEGY, "max"), (BLEND_STRATEGY, "blend")):
         kw = dict(resolution=256, strategy=strategy, bounds=bounds,
                   max_pass_budget=1 << 14)
-        gpu = voxel_dict(soup, "cuda", **kw)
-        cpu = voxel_dict(soup, "cpu", **kw)
-        if set(gpu) != set(cpu):
-            fail(f"E2E {name}: voxel sets differ ({len(gpu)} vs {len(cpu)})")
-        a = np.array([gpu[k] for k in cpu], np.uint32).view(np.uint8).astype(np.int16)
-        b = np.array(list(cpu.values()), np.uint32).view(np.uint8).astype(np.int16)
-        lsb = int(np.abs(a - b).max()) if a.size else 0
-        if lsb > (1 if strategy == BLEND_STRATEGY else 0):
-            fail(f"E2E {name}: colors differ by {lsb} LSB")
-        details.append(f"{name}:{len(gpu)} voxels, {lsb} LSB")
-    phase("5 end-to-end cuda vs cpu", t0, "; ".join(details))
+        gpu = voxel_dict(voxelize_soup(soup, pool, **kw))
+        cpu = voxel_dict(voxelize_soup(soup, pool, device="cpu", **kw))
+        details.append(f"{name}: " + compare_voxels(
+            gpu, cpu, strategy == BLEND_STRATEGY, f"E2E {name}"))
+    return details
+
+
+def phase_e2e():
+    t0 = time.perf_counter()
+    phase("5 end-to-end cuda vs cpu", t0, "; ".join(e2e_soup(False, 5)))
+
+
+def write_obj(d, n=300, seed=13):
+    """A small OBJ: flat-colored faces from an MTL, and faces without a
+    material but with UVs, which an Instance textures with its fallback
+    texture (no image file, so no PIL)."""
+    rng = np.random.default_rng(seed)
+    verts = (rng.random((n, 1, 3)) + rng.uniform(-0.05, 0.05, (n, 3, 3))).reshape(-1, 3)
+    uvs = rng.uniform(-1.5, 2.5, (n * 3, 2))
+    lines = ["mtllib m.mtl"] + [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
+    lines += [f"vt {u:.6f} {v:.6f}" for u, v in uvs]
+    for i in range(n):
+        if i == n // 3:
+            lines.append("usemtl green")
+        elif i == 2 * n // 3:
+            lines.append("usemtl none")
+        a, b, c = 3 * i + 1, 3 * i + 2, 3 * i + 3
+        lines.append(f"f {a}/{a} {b}/{b} {c}/{c}")
+    (d / "m.obj").write_text("\n".join(lines) + "\n")
+    (d / "m.mtl").write_text("newmtl green\nKd 0.2 0.7 0.3\n")
+    return d / "m.obj"
+
+
+def phase_e2e_textured():
+    import obj2voxel_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    details = e2e_soup(True, 7)
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = write_obj(Path(tmp))
+        rng = np.random.default_rng(14)
+        outs = {}
+        for device in ("cuda", "cpu"):
+            inst = pt.Instance(device)
+            tex = pt.Texture()
+            tex.load_pixels(rng.integers(0, 256, 5 * 7 * 3, dtype=np.uint8), 5, 7, 3)
+            inst.set_texture(tex)
+            inst.set_input_file(str(obj))
+            inst.set_output_memory("vl32")
+            inst.set_resolution(96)
+            if inst.voxelize() != pt.ERR_OK:
+                fail(f"Instance on {device} failed")
+            outs[device] = inst.get_output_memory()
+            rng = np.random.default_rng(14)
+        if outs["cuda"] != outs["cpu"]:
+            fail("Instance: VL32 bytes differ between the card and the cpu")
+        n_inst = len(outs["cuda"]) // 16
+        plys = []
+        for i, device in enumerate(("cuda", "cpu")):
+            plys.append(Path(tmp) / f"{i}.ply")
+            cmd = [sys.executable, "-m", "obj2voxel_tpu_torch.cli", str(obj),
+                   str(plys[-1]), "-r", "96", "--device", device]
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                                  cwd=Path(__file__).resolve().parent)
+            if proc.returncode != 0:
+                fail(f"CLI on {device}: {proc.stdout}{proc.stderr}")
+        ply = [p.read_bytes() for p in plys]
+        if ply[0] != ply[1]:
+            fail("CLI: PLY bytes differ between cuda and cpu")
+    details.append(f"Instance (fallback texture) {n_inst} voxels, bytes equal; "
+                   f"CLI PLY {len(ply[0])} bytes equal")
+    phase("11 textured end-to-end cuda vs cpu", t0, "; ".join(details))
 
 
 def phase_closed_forms():
@@ -294,64 +590,127 @@ def phase_closed_forms():
     soup = TriangleSoup.from_vertices(tris)
     details = []
     for r, want in ((1024, 6_279_176), (2048, 25_141_256)):
-        got = sum(x.shape[0] for x, _ in voxelize_soup(soup, resolution=r,
-                                                        device="cuda"))
+        # the device is the default: CUDA
+        got = sum(x.shape[0] for x, _ in voxelize_soup(soup, resolution=r))
         if got != want or want != 8 + 12 * (r - 2) + 6 * (r - 2) ** 2:
             fail(f"cube r={r}: {got} voxels, want {want}")
         details.append(f"r{r}:{got}")
     phase("6 closed forms (unit cube)", t0, " ".join(details))
 
 
-def phase_real_size(info):
+def drive_sphere(table, pool, aabb, is_blend, check):
+    """One run of the main path: stream_slabs over the sphere table with
+    outputs kept on the device; returns (voxel count, the sum of `check`
+    over the slabs' outputs, read back once at the end)."""
     import obj2voxel_tpu_torch as pt
     from obj2voxel_tpu_torch.engine import MAX_PASS_BUDGET
+
+    voxels, checks = 0, []
+    for xyz, argb, count in pt.stream_slabs(
+        table, pool, aabb_host=aabb, stride=SPHERE_RES, z_extent=SPHERE_RES,
+        is_blend=is_blend, pair_tile=MAX_PASS_BUDGET, device_outputs=True,
+    ):
+        voxels += count
+        checks.append(check(xyz[:count], argb[:count]))
+    total = int(torch.stack(checks).sum().item()) if checks else 0
+    torch.cuda.synchronize()
+    return voxels, total
+
+
+def real_size(name, table, pool, aabb, is_blend, check, info):
+    """Drive one main path with the launch counts reset just before it and
+    read just after; then the warm median of 3 runs."""
+    import obj2voxel_tpu_torch as pt
+
+    pt.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    voxels, checked = drive_sphere(table, pool, aabb, is_blend, check)
+    launches = dict(pt.LAUNCHES)
+    if voxels != SPHERE_VOXELS:
+        fail(f"{name} sphere: {voxels} voxels, want {SPHERE_VOXELS}")
+    for kernel in PATH_KERNELS[name]:
+        if launches[kernel] <= 0:
+            fail(f"{name} main path launched {kernel} no time")
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        if drive_sphere(table, pool, aabb, is_blend, check) != (voxels, checked):
+            fail(f"{name} sphere: output changed between runs")
+        times.append(time.perf_counter() - t)
+    med = sorted(times)[1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return launches, checked, (f"{voxels} voxels; warm median {med:.4f} s = "
+                      f"{SPHERE_TRIS / med / 1e6:.3f} Mtri/s, {voxels / med / 1e6:.3f} "
+                      f"Mvox/s; runs {[round(x, 4) for x in times]}; peak "
+                      f"{peak:.2f} GiB; launches {launches}; on {info}")
+
+
+def phase_real_size(info):
+    import obj2voxel_tpu_torch as pt
 
     t0 = time.perf_counter()
     table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES)
     table = pt.table_from_numpy(table_np, "cuda")
 
-    def run():
-        voxels, checks = 0, []
-        for xyz, argb, count in pt.stream_slabs(
-            table, aabb_host=aabb, stride=SPHERE_RES, z_extent=SPHERE_RES,
-            is_blend=True, pair_tile=MAX_PASS_BUDGET, device_outputs=True,
-        ):
-            voxels += count
-            # touch every output byte on the device
-            checks.append(argb[:count].view(torch.int32).sum() + xyz[:count].sum())
-        if checks:
-            torch.stack(checks).sum().item()
-        torch.cuda.synchronize()
-        return voxels
+    def touch(xyz, argb):
+        # touch every output byte on the device
+        return argb.view(torch.int32).sum() + xyz.sum()
 
-    pt.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    voxels = run()
-    launches = dict(pt.LAUNCHES)
-    if voxels != SPHERE_VOXELS:
-        fail(f"sphere: {voxels} voxels, want {SPHERE_VOXELS}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"main path launched {name} no time")
-    times = []
-    for _ in range(3):
-        t = time.perf_counter()
-        if run() != voxels:
-            fail("sphere: voxel count changed between runs")
-        times.append(time.perf_counter() - t)
-    med = sorted(times)[1]
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    phase("7 real size (2M-tri sphere @ 1024^3 BLEND)", t0,
-          f"{voxels} voxels; warm median {med:.4f} s = "
-          f"{SPHERE_TRIS / med / 1e6:.3f} Mtri/s, {voxels / med / 1e6:.3f} Mvox/s; "
-          f"runs {[round(x, 4) for x in times]}; peak {peak:.2f} GiB; "
-          f"launches {launches}; on {info}")
+    launches, _, detail = real_size("untextured", table, None, aabb, True, touch,
+                                    info)
+    phase("7 real size (2M-tri sphere @ 1024^3 BLEND)", t0, detail)
+    return launches
+
+
+def phase_real_size_textured(info):
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch.ops.color import upload_pool
+
+    t0 = time.perf_counter()
+    table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES, textured=True)
+    table = pt.table_from_numpy(table_np, "cuda")
+    pool, palette = palette_pool()
+    pool_dev = upload_pool(pool, "cuda")
+    allowed = torch.from_numpy(palette.view(np.int32)).cuda()
+
+    def off_palette(xyz, argb):
+        # voxels whose ARGB is not 0xFF000000 | a palette color
+        return (~torch.isin(argb.view(torch.int32), allowed)).sum()
+
+    launches, bad, detail = real_size("textured", table, pool_dev, aabb, False,
+                                      off_palette, info)
+    if bad:
+        fail(f"textured sphere: {bad} voxels off the palette")
+    del table, pool_dev
+
+    # the same textured sphere through the user's entry point (host
+    # transform and subdivision make another table: no count gate)
+    from obj2voxel_tpu_torch.constants import TRI_TEXTURED
+    from obj2voxel_tpu_torch.utils.meshes import make_sphere_mesh
+
+    tris, uvs = make_sphere_mesh(SPHERE_TRIS, uvs=True)
+    n = tris.shape[0]
+    soup = pt.TriangleSoup(tris, uvs, np.full(n, TRI_TEXTURED, np.int32),
+                           np.ones((n, 3), np.float32), np.zeros(n, np.int32))
+    inst = pt.Instance()
+    inst.set_input_soup(soup, pool)
+    inst.set_output_memory("vl32")
+    inst.set_resolution(SPHERE_RES)
+    t = time.perf_counter()
+    if inst.voxelize() != pt.ERR_OK:
+        fail("Instance on the textured sphere failed")
+    inst_s = time.perf_counter() - t
+    n_inst = len(inst.get_output_memory()) // 16
+    phase("12 real size textured (2M-tri sphere, 4096^2 REPEAT texture @ "
+          "1024^3 MAX)", t0, f"{detail}; all ARGB on the {PALETTE}-color "
+          f"palette; Instance.set_input_soup -> VL32 in memory: {n_inst} voxels "
+          f"in {inst_s:.3f} s")
     return launches
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))))
     want = {int(p) for p in ap.parse_args().phases.split(",")}
 
     if not torch.cuda.is_available():
@@ -369,30 +728,39 @@ def main():
     phase("1 build", t0, f"nvcc {_cuda.BUILD_SECONDS} s -> {_cuda.library_path().name}")
 
     stats = {name: {} for name in KERNELS}
-    if want & {2, 8}:
-        phase_k1(stats)
-    if want & {3, 8}:
-        phase_k2(stats)
-    if want & {4, 8}:
-        phase_k3(stats)
+    for num, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3), (9, phase_k4),
+                    (10, phase_k5)):
+        if want & {num, 8}:
+            fn(stats)
     if 5 in want:
         phase_e2e()
+    if 11 in want:
+        phase_e2e_textured()
     if 6 in want:
         phase_closed_forms()
-    launches = {name: 0 for name in KERNELS}
+    by_path = {path: {name: 0 for name in KERNELS} for path in PATH_KERNELS}
     if 7 in want:
-        launches = phase_real_size(info)
+        by_path["untextured"] = phase_real_size(info)
+    if 12 in want:
+        by_path["textured"] = phase_real_size_textured(info)
     if 8 in want:
         for name, s in stats.items():
+            lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f} ms"
             print(f"[phase] 8 {name}: kernel {s['ms']:.4f} ms, plain "
-                  f"{s['plain_ms']:.4f} ms ({info})", flush=True)
-    if want != {1, 2, 3, 4, 5, 6, 7, 8}:
+                  f"{s['plain_ms']:.4f} ms, library {lib}, bound "
+                  f"{s['bound_ms']:.4f} ms by {s['bound_by']} ({s['bytes']} B, "
+                  f"{s['ops']} FP32 ops) ({info})", flush=True)
+    if want != ALL_PHASES:
         print("[partial run: no result line]", flush=True)
         return
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         "launches": sum(by_path[p][name] for p in by_path),
+         "launches_by_path": {p: by_path[p][name] for p in by_path},
+         "max_abs_err": stats[name]["max_abs_err"],
+         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+         "bound_ms": stats[name]["bound_ms"], "bound_by": stats[name]["bound_by"],
+         "library_ms": stats[name]["library_ms"]}
         for name, (src, rep) in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,34 @@
 """obj2voxel-tpu's voxelizer in PyTorch, with hand-written CUDA kernels for
 NVIDIA Hopper.
 
-The main path for untextured meshes on one device: `voxelize_soup` ->
-`voxelize_grid` -> `stream_slabs`, with MAX and BLEND color strategies.  The
-device is an argument: on a CPU device every kernel wrapper runs its plain
-PyTorch version, on a CUDA device it launches the kernel built from
-`csrc/` (see ops/_cuda.py).  The JAX package `obj2voxel_tpu` is the
-reference this package is tested against; nothing here imports it.
+The single-device voxelizer: `Instance` (the reference's C API), the CLI
+(`python -m obj2voxel_tpu_torch.cli`), and the engine beneath them
+(`voxelize_soup` -> `voxelize_grid` -> `stream_slabs`) for untextured and
+textured meshes, with MAX and BLEND color strategies.  Everything runs on a
+CUDA device unless the caller asks for the CPU: on a CPU device every kernel
+wrapper runs its plain PyTorch version, on a CUDA device it launches the
+kernel built from `csrc/` (see ops/_cuda.py).  The JAX package
+`obj2voxel_tpu` is the reference this package is tested against; nothing
+here imports it.
 """
 
-from .constants import BLEND_STRATEGY, MAX_STRATEGY, VERSION
+from . import constants
+from .api import Instance, Texture, Triangle, get_log_level, set_log_callback, set_log_level
+from .constants import (
+    BLEND_STRATEGY,
+    ERR_DOUBLE_VOXELIZATION,
+    ERR_IO_ERROR_DURING_VOXEL_WRITE,
+    ERR_IO_ERROR_ON_OPEN_INPUT_FILE,
+    ERR_IO_ERROR_ON_OPEN_OUTPUT_FILE,
+    ERR_NO_INPUT,
+    ERR_NO_OUTPUT,
+    ERR_NO_RESOLUTION,
+    ERR_OK,
+    MAX_STRATEGY,
+    UV_CLAMP,
+    UV_WRAP,
+    VERSION,
+)
 from .engine import stream_slabs, voxelize_grid, voxelize_soup
 from .ops._cuda import LAUNCHES, reset_launches
 from .soup import TexturePool, TriangleSoup, build_tri_table, table_from_numpy
@@ -17,7 +36,12 @@ from .soup import TexturePool, TriangleSoup, build_tri_table, table_from_numpy
 __version__ = VERSION
 
 __all__ = [
-    "BLEND_STRATEGY", "LAUNCHES", "MAX_STRATEGY", "TexturePool",
-    "TriangleSoup", "build_tri_table", "reset_launches", "stream_slabs",
-    "table_from_numpy", "voxelize_grid", "voxelize_soup",
+    "Instance", "Texture", "Triangle", "TriangleSoup", "TexturePool",
+    "voxelize_soup", "voxelize_grid", "stream_slabs", "build_tri_table",
+    "table_from_numpy", "LAUNCHES", "reset_launches",
+    "set_log_level", "get_log_level", "set_log_callback", "constants",
+    "MAX_STRATEGY", "BLEND_STRATEGY", "UV_CLAMP", "UV_WRAP",
+    "ERR_OK", "ERR_NO_INPUT", "ERR_NO_OUTPUT", "ERR_NO_RESOLUTION",
+    "ERR_IO_ERROR_ON_OPEN_INPUT_FILE", "ERR_IO_ERROR_ON_OPEN_OUTPUT_FILE",
+    "ERR_IO_ERROR_DURING_VOXEL_WRITE", "ERR_DOUBLE_VOXELIZATION", "VERSION",
 ]

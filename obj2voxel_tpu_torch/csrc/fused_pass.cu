@@ -12,9 +12,8 @@
 // simple: one thread per slot, row = slot >> log2(expand) (the TPU's MXU
 // one-hot expansion does not carry over), the polygon in per-thread arrays,
 // and only the x/y/z channels (untextured passes need no UVs).  The clip
-// uses the same operations in the same order as ops/clip.py with explicit
-// round-to-nearest intrinsics, and the build passes --fmad=false, so no FMA
-// contraction moves the epsilon plane tests.
+// is o2v_clip.cuh, shared with the standalone clip (K4): the same operations
+// in the same order as ops/clip.py, with no FMA contraction.
 //
 // The TPU version compacts at a running offset carried by its sequential
 // grid.  Here the pass kernel writes slot-ordered rows plus per-tile live
@@ -22,73 +21,14 @@
 // exact dense prefix in slot order and the count.  Giant-triangle passes
 // (`wide_local`) decode the rank with exact integer div/mod, so they run
 // through this kernel too.
+#include "o2v_clip.cuh"
 #include "o2v_compact.cuh"
 
 namespace {
 
-constexpr float kEps = 1.0f / 65536.0f;  // reference EPSILON = 2^-16
-constexpr int kSlots = 10;  // closed polygon after six planes: 3 + 6 + 1
-
-// One Sutherland-Hodgman pass (ops/clip.py `_clip_one_plane`): C input slots
-// in the closed representation, AXIS and KEEP_HI static.
-template <int C, int AXIS, bool KEEP_HI>
-__device__ __forceinline__ void clip_plane(const float (&in)[3][kSlots],
-                                           int count, float plane,
-                                           float (&out)[3][kSlots],
-                                           int& new_count) {
-  const float* v = in[AXIS];
-  bool all_lo = true;
-#pragma unroll
-  for (int i = 0; i < C - 1; ++i) all_lo &= (v[i] < plane) || (i >= count);
-
-  bool inside[C];
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    const float gap = __fsub_rn(plane, v[i]);
-    inside[i] = KEEP_HI ? (gap < kEps && !all_lo)
-                        : (all_lo || (v[i] < plane && gap >= kEps));
-  }
-
-  int n = 0;
-#pragma unroll
-  for (int i = 0; i < C - 1; ++i) {
-    if (i < count) {
-      if (inside[i]) {
-        if (n <= C) {
-#pragma unroll
-          for (int c = 0; c < 3; ++c) out[c][n] = in[c][i];
-        }
-        ++n;
-      }
-      if (inside[i] != inside[i + 1]) {
-        const float d = __fsub_rn(v[i], v[i + 1]);
-        const float t =
-            fabsf(d) < kEps
-                ? 0.0f
-                : __fdiv_rn(__fsub_rn(v[i], plane), d == 0.0f ? 1.0f : d);
-        const float omt = __fsub_rn(1.0f, t);
-        if (n <= C) {
-#pragma unroll
-          for (int c = 0; c < 3; ++c)
-            out[c][n] = __fadd_rn(__fmul_rn(omt, in[c][i]),
-                                  __fmul_rn(t, in[c][i + 1]));
-        }
-        ++n;
-      }
-    }
-  }
-  // close the polygon; like ops/clip.py, emissions past slot C are dropped
-  // (a convex polygon gains at most one vertex per plane, so this only
-  // guards degenerate input)
-  if (n <= C) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) out[c][n] = out[c][0];
-  }
-  new_count = n;
-}
-
 // Clipped area of the triangle inside the unit voxel at (vx, vy, vz)
-// (ops/clip.py `_clip_polygons` + the weight of `_area_uv`).
+// (ops/clip.py `_clip_polygons` + the weight of `_area_uv`), on the x/y/z
+// channels only: untextured passes need no UVs.
 __device__ float clip_area(const float* __restrict__ t, float vx, float vy,
                            float vz) {
   float a[3][kSlots], b[3][kSlots];
@@ -99,33 +39,9 @@ __device__ float clip_area(const float* __restrict__ t, float vx, float vy,
     a[c][2] = t[6 + c];
     a[c][3] = t[c];
   }
-  int n = 3;
-  clip_plane<4, 0, true>(a, n, vx, b, n);
-  clip_plane<5, 1, true>(b, n, vy, a, n);
-  clip_plane<6, 2, true>(a, n, vz, b, n);
-  clip_plane<7, 0, false>(b, n, __fadd_rn(vx, 1.0f), a, n);
-  clip_plane<8, 1, false>(a, n, __fadd_rn(vy, 1.0f), b, n);
-  clip_plane<9, 2, false>(b, n, __fadd_rn(vz, 1.0f), a, n);
-
-  const float x0 = a[0][0], y0 = a[1][0], z0 = a[2][0];
-  float weight = 0.0f;
-#pragma unroll
-  for (int i = 1; i < kSlots - 1; ++i) {
-    if (i + 1 < n) {
-      const float ax = __fsub_rn(a[0][i], x0), ay = __fsub_rn(a[1][i], y0),
-                  az = __fsub_rn(a[2][i], z0);
-      const float bx = __fsub_rn(a[0][i + 1], x0),
-                  by = __fsub_rn(a[1][i + 1], y0),
-                  bz = __fsub_rn(a[2][i + 1], z0);
-      const float cx = __fsub_rn(__fmul_rn(ay, bz), __fmul_rn(az, by));
-      const float cy = __fsub_rn(__fmul_rn(az, bx), __fmul_rn(ax, bz));
-      const float cz = __fsub_rn(__fmul_rn(ax, by), __fmul_rn(ay, bx));
-      const float s = __fadd_rn(__fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cy, cy)),
-                                __fmul_rn(cz, cz));
-      weight = __fadd_rn(weight, __fmul_rn(0.5f, __fsqrt_rn(s)));
-    }
-  }
-  return weight;
+  const int n = clip_voxel<3>(a, b, vx, vy, vz);
+  float unused_u, unused_v;
+  return fan_area<3>(a, n, unused_u, unused_v);
 }
 
 // Float-reciprocal divmod with one correction step (pass_fused.py

@@ -1,24 +1,28 @@
 """Voxelization pipeline driver in PyTorch.
 
-The port of obj2voxel_tpu/engine.py's main path for untextured meshes on one
-device:
+The port of obj2voxel_tpu/engine.py's single-device path:
 
   host:   bounds -> transform -> subdivide -> (N, 24) triangle table
   device: plan (ops/plan_device.py) -> one plan-order gather -> per-bucket
-          passes (K1, ops/pass_fused.py: expansion, rank decode, clip, key,
-          premultiply, ordered compaction) -> per-slab merges (stable key
-          sort -> K2 segmented combine -> K3 exact compaction) -> finalize
-          to (xyz, ARGB) per z-slab
+          passes -> per-slab merges (stable key sort -> K2 segmented
+          combine -> K3 exact compaction) -> finalize to (xyz, ARGB) per
+          z-slab
 
-Every pass has one shape (K1 with compaction) and every slab, single-pass or
-not, takes the same merge tail: a stable sort of the slot-ordered pass
-outputs equals the stable sort of the full pair stream, so MAX ties still go
-to the earliest pair.  The device is an argument; on a CPU tensor each
-kernel wrapper takes its plain version, on a CUDA tensor it launches the
-hand-written kernel.
+A pass is one of two shapes, chosen per mesh as the JAX package chooses
+(obj2voxel_tpu/engine.py:1250-1251, :503): untextured meshes take K1
+(ops/pass_fused.py: expansion, rank decode, clip, key, premultiply, ordered
+compaction in one kernel); a mesh whose texture pool holds more than one
+pixel takes `_textured_pass` (rank decode in torch ops, K4 clip with UVs,
+texture sampling, K3 compaction).  Both return the live pairs in slot order.
+Every slab, single-pass or not, takes the same merge tail: a stable sort of
+the slot-ordered pass outputs equals the stable sort of the full pair
+stream, so MAX ties still go to the earliest pair.
 
-Not ported yet (they raise NotImplementedError): supersampling > 1,
-textured meshes and input-area weights.
+The device defaults to CUDA; on a CPU tensor each kernel wrapper takes its
+plain version, on a CUDA tensor it launches the hand-written kernel.
+
+Not ported yet (they raise NotImplementedError): supersampling > 1 and
+input-area weights.
 """
 
 from __future__ import annotations
@@ -28,10 +32,14 @@ import torch
 
 from .constants import BLEND_STRATEGY, MAX_STRATEGY, PAIR_TILE
 from .geometry import compute_mesh_transform, mesh_bounds
-from .ops.combine import finalize_colors, pack_argb, sort_channels
+from .io import debug_stl
+from .ops._cuda import INVALID_KEY
+from .ops.clip_pallas import clip_pairs
+from .ops.color import sample_pair_colors_uv, upload_pool
+from .ops.combine import finalize_colors, pack_argb, premultiply, sort_channels
 from .ops.combine_pallas import segment_combine
 from .ops.pack_pallas import pack_exact
-from .ops.pass_fused import fused_pass
+from .ops.pass_fused import fused_pass, slot_voxels
 from .ops.plan import plan_mesh
 from .ops.plan_device import gather_ordered, plan_mesh_device
 from .ops.subdivide import subdivide_soup
@@ -122,6 +130,55 @@ def plan_fold_chunks(sizes, cap):
     return groups
 
 
+def pass_pairs(table_t, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
+               budget, wide_local):
+    """The (triangle, voxel) pairs of one pass, laid out for K4.
+
+    `table_t` is the plan-ordered table channel-major, (24, M).  Slot s of
+    the budget belongs to row r0 + (s >> log2(expand)) and has within-AABB
+    rank local_base + (s & (expand - 1)); the rank decodes to a voxel as in
+    obj2voxel_tpu/engine.py:410-480.  Returns (tri_data (16, budget) f32,
+    vox_data (4, budget) f32, attrs (5, budget) f32 = the slot rows' columns
+    16:21 (type, r, g, b, texture id), voxel (vx, vy, vz) int64, valid
+    (budget,) bool: the slot's row is one of the pass's and its rank lies in
+    the row's AABB)."""
+    dev = table_t.device
+    slot = torch.arange(budget, dtype=torch.int64, device=dev)
+    row = slot >> (expand.bit_length() - 1)
+    row_live = row < n_rows
+    row = torch.clamp(row, max=n_rows - 1)
+    local = local_base + (slot & (expand - 1))
+    vx, vy, vz, inside = slot_voxels(table_t[:, r0 : r0 + n_rows].T, row, local,
+                                     z_lo, z_hi, stride, wide_local)
+    # one gather of the 21 used columns; both slices stay contiguous
+    cols = table_t[0:21, r0 + row]
+    vox = torch.stack([vx, vy, vz, torch.zeros_like(vx)]).to(torch.float32)
+    return cols[0:16], vox, cols[16:21], (vx, vy, vz), row_live & inside
+
+
+def _textured_pass(table_t, pool, r0, n_rows, local_base, z_lo, z_hi, stride,
+                   *, expand, budget, wide_local):
+    """One pass of a textured mesh (obj2voxel_tpu/engine.py:410-524, the
+    unfused branch of `_bucket_pass`), with `fused_pass`'s contract: K4
+    clips all `budget` pairs of `pass_pairs` with their UVs, the pair's
+    color is sampled from the pool, and K3 compacts the live pairs (valid
+    and w > 0) in slot order.  `table_t` is channel-major (24, M).  Returns
+    (key, w, wr, wg, wb (budget,), count (1,) int32)."""
+    tri, vox, attrs, (vx, vy, vz), valid = pass_pairs(
+        table_t, r0, n_rows, local_base, z_lo, z_hi, stride, expand=expand,
+        budget=budget, wide_local=wide_local)
+    out = clip_pairs(tri, vox)
+    w = torch.where(valid, out[0], 0.0)
+    colors = sample_pair_colors_uv(
+        out[1], out[2], attrs[0].to(torch.int64), attrs[1:4].T,
+        attrs[4].to(torch.int64), *pool,
+    )
+    key = (vz - z_lo) * (stride * stride) + vy * stride + vx
+    key = torch.where(w > 0, key, INVALID_KEY).to(torch.int32)
+    k, chans, count = pack_exact(key, premultiply(w, colors))
+    return (k, *chans, count)
+
+
 def _merge_keys(keys, chans, is_blend):
     """Stable sort -> K2 -> K3: compacted unique (keys, chans, count (1,))
     in slab-local key order."""
@@ -168,7 +225,7 @@ def voxelize_soup(
     pool: TexturePool | None = None,
     *,
     resolution: int,
-    device,
+    device="cuda",
     supersampling: int = 1,
     strategy: int = MAX_STRATEGY,
     unit_transform=None,
@@ -178,12 +235,11 @@ def voxelize_soup(
     subdivide: bool = True,
     group: int = PLAN_GROUP,
 ):
-    """Voxelize a triangle soup on `device`; yields (xyz int32 (K, 3), argb
-    uint32 (K,)) numpy arrays per z-slab."""
+    """Voxelize a triangle soup on `device` (a CUDA device unless the caller
+    asks for the CPU); yields (xyz int32 (K, 3), argb uint32 (K,)) numpy
+    arrays per z-slab."""
     if supersampling != 1:
         raise NotImplementedError("supersampling > 1 is not ported yet")
-    if pool is not None and len(pool):
-        raise NotImplementedError("textured meshes are not ported yet")
     device = torch.device(device)
     n = len(soup)
     if n == 0:
@@ -197,6 +253,7 @@ def voxelize_soup(
         mesh_min = np.asarray(bounds[0], np.float32)
         mesh_max = np.asarray(bounds[1], np.float32)
     transform = compute_mesh_transform(mesh_min, mesh_max, sample_res, unit_transform)
+    pool_dev = upload_pool(pool, device)
 
     verts_host = transform.apply(soup.verts)
     if subdivide:
@@ -208,8 +265,10 @@ def voxelize_soup(
         uvs_host, types_host, rgb_host, tex_host = (
             soup.uvs, soup.types, soup.rgb, soup.tex,
         )
+    if debug_stl.enabled():
+        debug_stl.record(verts_host)
     gen = voxelize_grid(
-        verts_host, uvs_host, types_host, rgb_host, tex_host,
+        verts_host, uvs_host, types_host, rgb_host, tex_host, pool_dev,
         device=device, stride=sample_res, z_extent=sample_res,
         is_blend=is_blend, pair_tile=pair_tile,
         max_pass_budget=max_pass_budget, group=group,
@@ -219,8 +278,8 @@ def voxelize_soup(
 
 
 def voxelize_grid(
-    verts_host, uvs_host, types_host, rgb_host, tex_host, *,
-    device,
+    verts_host, uvs_host, types_host, rgb_host, tex_host, pool=None, *,
+    device="cuda",
     stride: int,
     z_extent: int,
     is_blend: bool,
@@ -229,7 +288,8 @@ def voxelize_grid(
     group: int = PLAN_GROUP,
 ):
     """Streaming loop over z-slabs for pre-transformed triangles on a grid
-    spanning [0, stride) in x/y and [0, z_extent) in z."""
+    spanning [0, stride) in x/y and [0, z_extent) in z.  `pool` is the
+    device texture pool (ops/color.upload_pool) or None."""
     n_sub = verts_host.shape[0]
     if n_sub == 0:
         return
@@ -242,7 +302,7 @@ def voxelize_grid(
     ).to(device)
     del verts_host, uvs_host, types_host, rgb_host, tex_host
     yield from stream_slabs(
-        table, aabb_host=(vmin_h, vmax_h), stride=stride, z_extent=z_extent,
+        table, pool, aabb_host=(vmin_h, vmax_h), stride=stride, z_extent=z_extent,
         is_blend=is_blend, pair_tile=pair_tile,
         max_pass_budget=max_pass_budget, group=group,
     )
@@ -250,6 +310,7 @@ def voxelize_grid(
 
 def stream_slabs(
     tri_table,
+    pool=None,
     *,
     aabb_host,
     stride: int,
@@ -263,6 +324,10 @@ def stream_slabs(
     """Slab streaming over a device-resident (N, 24) triangle table in voxel
     space.  `aabb_host` is the host (vmin, vmax) pair of per-triangle voxel
     AABBs (vmax exclusive, x/y grid-clamped) for the first len(vmin) rows.
+    `pool` is the device texture pool (pixels, meta) of ops/color.upload_pool
+    or None.  Like the JAX package, every pass takes `_textured_pass` when
+    the pool holds more than one pixel and K1 otherwise: a pool of one 1x1
+    texture takes K1, so its textured triangles get their flat color.
 
     Yields (xyz, argb) numpy arrays per slab, or with device_outputs=True
     (xyz, argb, count) with xyz/argb still on the device, count-padded."""
@@ -270,6 +335,7 @@ def stream_slabs(
     n_sub = vmin_h.shape[0]
     max_budget = min(pair_tile, max_pass_budget)
     slot_budget = 4 * max_budget
+    textured = pool is not None and pool[0].shape[0] > 1
 
     order, segments = plan_mesh_device(
         tri_table, n_sub, stride, z_extent, slot_budget, group=group
@@ -285,6 +351,9 @@ def stream_slabs(
         group = 1
     table = gather_ordered(tri_table, order, segments[-1].r1, group)
     del order
+    if textured:
+        # channel-major once, so each pass gathers its K4 rows directly
+        table = table.T.contiguous()
 
     by_slab: dict[tuple[int, int], list] = {}
     for seg in segments:
@@ -302,10 +371,10 @@ def stream_slabs(
             for expand, budget, r0, n_rows, local_base, wide in _schedule_passes(
                 slab_segs, max_budget
             ):
-                outs.append(fused_pass(
-                    table, r0, n_rows, local_base, z_lo, z_hi, stride,
-                    expand=expand, budget=budget, wide_local=wide,
-                ))
+                args = (r0, n_rows, local_base, z_lo, z_hi, stride)
+                kw = dict(expand=expand, budget=budget, wide_local=wide)
+                outs.append(_textured_pass(table, pool, *args, **kw) if textured
+                            else fused_pass(table, *args, **kw))
                 wave_rows += budget
             wave.append((z_lo, z_hi, outs))
 

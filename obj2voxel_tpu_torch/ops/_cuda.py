@@ -25,10 +25,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "o2v_kernels"
 
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "--fmad=false", "-std=c++17", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-O3", "--fmad=false", "-std=c++17", "-lineinfo",
+    "-Xcompiler", "-fPIC",
 ]
 
 #: Sentinel key of dead rows; sorts to the end (csrc O2V_INV).
@@ -37,9 +37,10 @@ INVALID_KEY = (1 << 31) - 1
 #: Rows per compaction tile (csrc/o2v_compact.cuh COMPACT_TILE).
 COMPACT_TILE = 256
 
-#: Launch counts of the three main-path kernels.  Each wrapper adds one
-#: where it launches its kernel and nowhere else.
-LAUNCHES = {"fused_pass": 0, "segment_combine": 0, "pack_exact": 0}
+#: Launch counts of the kernels.  Each wrapper adds one where it launches
+#: its kernel and nowhere else.
+LAUNCHES = {"fused_pass": 0, "segment_combine": 0, "pack_exact": 0,
+            "clip_pairs": 0, "pack_channels": 0}
 
 #: Seconds the last build took (None: loaded from an existing build).
 BUILD_SECONDS = None
@@ -57,6 +58,11 @@ _SIGNATURES = {
     # keys, w, r, g, b, out x5, count_out, tile counts, tile offsets, n,
     # stream
     "o2v_pack_exact": [_P] * 5 + [_P] * 5 + [_P, _P, _P] + [_I, _P],
+    # tri (16, n), vox (4, n), out (4, n), n, stream
+    "o2v_clip_pairs": [_P, _P, _P, _I, _P],
+    # keys, w, r, g, b, out x5, count_out, tile counts, padded tile counts,
+    # tile offsets, n, stream
+    "o2v_pack_channels": [_P] * 5 + [_P] * 5 + [_P] * 4 + [_I, _P],
 }
 
 _LIB = None
@@ -91,26 +97,47 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the shared library unless it exists."""
+    """Compile csrc/*.cu into the shared library unless it exists: one nvcc
+    per source, all started together, then one link."""
     global BUILD_SECONDS
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for obj, proc in jobs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{obj.name}: nvcc failed ({proc.returncode}):\n{out}")
+        elif verbose and out:
+            print(out, flush=True)
+    objs = [obj for obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
         )
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, so)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     BUILD_SECONDS = time.perf_counter() - t0
     return so
 

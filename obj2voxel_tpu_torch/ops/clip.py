@@ -95,6 +95,13 @@ def _clip_polygons(slots, count, voxel_f):
     return slots, count
 
 
+def _sqrt_rn(x):
+    """float32 square root rounded to nearest, like the kernels'
+    `__fsqrt_rn`: PyTorch's vectorized CPU sqrt is off by one ulp on ~0.7%
+    of float32 inputs, and a float64 root rounded once to float32 is exact."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def _area_uv(slots, count):
     """Area + area-weighted UV centroid via a triangle fan from slot 0."""
     C = len(slots)
@@ -112,14 +119,22 @@ def _area_uv(slots, count):
         cy = az * bx - ax * bz
         cz = ax * by - ay * bx
         piece_valid = count > i + 1
-        area = 0.5 * torch.sqrt(cx * cx + cy * cy + cz * cz)
+        area = 0.5 * _sqrt_rn(cx * cx + cy * cy + cz * cz)
         area = torch.where(piece_valid, area, zero)
         weight = weight + area
-        uv_num_u = uv_num_u + area * ((u0 + a[3] + b[3]) / 3.0)
-        uv_num_v = uv_num_v + area * ((v0 + a[4] + b[4]) / 3.0)
+        uv_num_u = uv_num_u + area * div_rn(u0 + a[3] + b[3], 3.0)
+        uv_num_v = uv_num_v + area * div_rn(v0 + a[4] + b[4], 3.0)
 
     safe_w = torch.where(weight > 0, weight, torch.ones_like(weight))
     return weight, uv_num_u / safe_w, uv_num_v / safe_w
+
+
+def div_rn(x, c):
+    """x / c rounded to nearest for a Python number c: on CUDA, PyTorch
+    divides by a CPU scalar as a multiplication by its reciprocal, which
+    is one ulp off for some x; a divisor tensor on x's device is divided
+    exactly, like the kernels' `__fdiv_rn`."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def clip_channels(tri_data, vox_data):

@@ -1,12 +1,19 @@
-"""K3: exact order-preserving compaction (csrc/pack_exact.cu).
+"""Order-preserving compaction of (key, 4 channels) streams.
 
-The counterpart of obj2voxel_tpu/ops/pack_pallas.py `pack_exact_pallas`:
-(key, 4 channels) rows with key != INVALID move to a dense prefix in input
-order, and the count comes back as a (1,) int32 tensor.  Unlike the TPU
-kernel, rows past the count are (INVALID, 0), never undefined.
+K3 `pack_exact` (csrc/pack_exact.cu), the counterpart of
+obj2voxel_tpu/ops/pack_pallas.py `pack_exact_pallas`: rows with key !=
+INVALID move to a dense prefix in input order, and the count comes back as a
+(1,) int32 tensor.
 
-`pack_exact` takes the plain version for CPU tensors and launches the CUDA
-kernel for CUDA tensors; `pack_exact_ref` is the plain version.
+K5 `pack_channels` (csrc/pack_channels.cu), the counterpart of
+`pack_channels_pallas`: the same per 8192-slot block, each block's live rows
+at a running offset that advances by the block's live count rounded up to
+128 rows, the gaps filled with (INVALID, 0); the count is the final offset.
+No engine path calls it.
+
+Unlike the TPU kernels, rows past the count are (INVALID, 0), never
+undefined.  Each wrapper takes its plain version (`*_ref`) for CPU tensors
+and launches its CUDA kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -14,6 +21,11 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+
+#: Slots per block of `pack_channels`, and the row granularity of its offsets.
+PACK_BLOCK = 8192
+PACK_ROW = 128
+
 
 def pack_exact_ref(keys, vals):
     """Plain version: (keys', vals' tuple, count (1,) int32)."""
@@ -69,4 +81,60 @@ def pack_exact(keys, vals):
     )
     _cuda.check(err, "pack_exact")
     _cuda.LAUNCHES["pack_exact"] += 1
+    return out_k, outs, count
+
+
+def pack_channels_ref(keys, vals):
+    """Plain version of the block-prefix layout: (keys', vals' tuple, count
+    (1,) int32)."""
+    live = (keys != _cuda.INVALID_KEY).reshape(-1, PACK_BLOCK)
+    per_block = live.sum(dim=1)
+    rounded = (per_block + PACK_ROW - 1) // PACK_ROW * PACK_ROW
+    base = torch.cumsum(rounded, 0) - rounded
+    # destination of each live row: its block's offset + its rank in the block
+    rank = torch.cumsum(live.to(torch.int64), dim=1) - 1
+    dst = (base[:, None] + rank)[live]
+    src = torch.nonzero(live.reshape(-1)).flatten()
+    out_k = torch.full_like(keys, _cuda.INVALID_KEY)
+    out_k[dst] = keys[src]
+    outs = []
+    for v in vals:
+        o = torch.zeros_like(v)
+        o[dst] = v[src]
+        outs.append(o)
+    return out_k, tuple(outs), rounded.sum().reshape(1).to(torch.int32)
+
+
+def pack_channels(keys, vals):
+    """Compact (keys, 4 float32 channels) into the block-prefix layout; the
+    length must be a multiple of PACK_BLOCK.
+
+    Returns (keys', vals' 4-tuple, count (1,) int32 tensor on the same
+    device); rows past count are (INVALID, 0)."""
+    _check(keys, vals)
+    n = keys.numel()
+    if n % PACK_BLOCK:
+        raise ValueError(f"pack_channels: length {n} is not a multiple of {PACK_BLOCK}")
+    if keys.device.type == "cpu":
+        return pack_channels_ref(keys, vals)
+    dev = _cuda.require_cuda("pack_channels", keys, *vals)
+    if n >= 1 << 31:
+        raise ValueError("pack_channels: stream longer than int32 indexing")
+    out_k = torch.empty_like(keys)
+    outs = tuple(torch.empty_like(v) for v in vals)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out_k, outs, count
+    n_tiles = n // _cuda.COMPACT_TILE
+    tile_counts, padded, tile_offsets = (
+        torch.empty(n_tiles, dtype=torch.int32, device=dev) for _ in range(3)
+    )
+    err = _cuda.lib().o2v_pack_channels(
+        keys.data_ptr(), *(v.data_ptr() for v in vals),
+        out_k.data_ptr(), *(o.data_ptr() for o in outs),
+        count.data_ptr(), tile_counts.data_ptr(), padded.data_ptr(),
+        tile_offsets.data_ptr(), n, _cuda.stream_ptr(dev),
+    )
+    _cuda.check(err, "pack_channels")
+    _cuda.LAUNCHES["pack_channels"] += 1
     return out_k, outs, count

@@ -28,6 +28,7 @@ import torch
 from . import _cuda
 from .clip import clip_channels
 
+
 def _divmod_f(lf, sf):
     """Float-reciprocal divmod with one correction step: exact for
     0 <= lf < 2^23."""
@@ -37,11 +38,14 @@ def _divmod_f(lf, sf):
     return lf - q * sf, q
 
 
-def fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride, *,
-                   expand, budget, wide_local):
-    """Plain version of the pass; same contract as `fused_pass`."""
-    dev = table.device
-    rows = table[r0 : r0 + n_rows]
+def slot_voxels(rows, row, local, z_lo, z_hi, stride, wide_local):
+    """The voxel of each slot and whether it lies in its row's AABB.
+
+    rows: (R, 24) table rows; row, local: (S,) int64 row index into `rows`
+    and within-AABB rank of each slot.  The per-row voxel AABB is x/y
+    clamped to [0, stride) and z to [z_lo, z_hi), with the planner's float
+    ops.  Returns (vx, vy, vz (S,) int64, inside (S,) bool); the voxel of a
+    slot outside its AABB is meaningless."""
     tmin, size = [], []
     los = (0, 0, z_lo)
     his = (stride, stride, z_hi)
@@ -50,31 +54,38 @@ def fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride, *,
         vb = torch.maximum(torch.maximum(rows[:, a], rows[:, a + 3]), rows[:, a + 6])
         t_lo = torch.clamp(torch.floor(va).to(torch.int64), los[a], his[a])
         t_hi = torch.clamp(torch.floor(vb).to(torch.int64) + 1, los[a], his[a])
-        tmin.append(t_lo)
-        size.append(torch.clamp(t_hi - t_lo, min=0))
+        tmin.append(t_lo[row])
+        size.append(torch.clamp(t_hi - t_lo, min=0)[row])
     sx = torch.clamp(size[0], min=1)
     sy = torch.clamp(size[1], min=1)
-    vol = size[0] * size[1] * size[2]
+    inside = local < size[0] * size[1] * size[2]
+    if wide_local:
+        rest = local // sx
+        vx = tmin[0] + local % sx
+        vy = tmin[1] + rest % sy
+        vz = tmin[2] + rest // sy
+    else:
+        mx, rest = _divmod_f(local.to(torch.float32), sx.to(torch.float32))
+        my, mz = _divmod_f(rest, sy.to(torch.float32))
+        vx = tmin[0] + mx.to(torch.int64)
+        vy = tmin[1] + my.to(torch.int64)
+        vz = tmin[2] + mz.to(torch.int64)
+    return vx, vy, vz, inside
 
-    # only slots inside their row's AABB volume can be live; the rest clip
-    # to zero weight, so they are never computed
+
+def fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride, *,
+                   expand, budget, wide_local):
+    """Plain version of the pass; same contract as `fused_pass`."""
+    dev = table.device
+    rows = table[r0 : r0 + n_rows]
     slot = torch.arange(n_rows * expand, dtype=torch.int64, device=dev)
     row = slot // expand
     local = local_base + (slot & (expand - 1))
-    keep = local < vol[row]
-    slot, row, local = slot[keep], row[keep], local[keep]
-
-    if wide_local:
-        rest = local // sx[row]
-        vx = tmin[0][row] + local % sx[row]
-        vy = tmin[1][row] + rest % sy[row]
-        vz = tmin[2][row] + rest // sy[row]
-    else:
-        mx, rest = _divmod_f(local.to(torch.float32), sx[row].to(torch.float32))
-        my, mz = _divmod_f(rest, sy[row].to(torch.float32))
-        vx = tmin[0][row] + mx.to(torch.int64)
-        vy = tmin[1][row] + my.to(torch.int64)
-        vz = tmin[2][row] + mz.to(torch.int64)
+    vx, vy, vz, keep = slot_voxels(rows, row, local, z_lo, z_hi, stride,
+                                   wide_local)
+    # only slots inside their row's AABB volume can be live; the rest clip
+    # to zero weight, so they are never clipped here
+    row, vx, vy, vz = row[keep], vx[keep], vy[keep], vz[keep]
 
     vox = torch.stack([vx, vy, vz]).to(torch.float32)
     w = clip_channels(rows[row, 0:16].T, vox)[0][0]

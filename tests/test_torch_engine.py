@@ -200,25 +200,33 @@ def test_device_outputs_match_host_outputs():
     assert dev == host
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [dict(supersampling=2), dict(pool="textured")],
-    ids=["supersampling", "textures"],
-)
-def test_unported_options_raise(cube_tris_m, kw):
-    if kw.get("pool") == "textured":
-        pool = pt.TexturePool()
-        pool.add(np.zeros((2, 2), np.uint32), C.UV_CLAMP)
-        kw = dict(pool=pool)
+def test_unported_options_raise(cube_tris_m):
     with pytest.raises(NotImplementedError):
         list(pt.voxelize_soup(pt.TriangleSoup.from_vertices(cube_tris_m),
-                              resolution=8, device="cpu", **kw))
+                              resolution=8, device="cpu", supersampling=2))
+
+
+def test_textured_pool_voxelizes(cube_tris_m):
+    # a non-empty pool used to raise; now its triangles sample their texture
+    pool = pt.TexturePool()
+    pool.add(np.array([[0xFF102030, 0xFF405060]], np.uint32), C.UV_CLAMP)
+    soup = pt.TriangleSoup.from_vertices(cube_tris_m)
+    soup.types[:] = C.TRI_TEXTURED
+    soup.tex[:] = 0
+    soup.uvs[:] = [[0.1, 0.5], [0.2, 0.5], [0.3, 0.5]]
+    got = _voxels(pt.voxelize_soup(soup, pool, resolution=8, device="cpu"))
+    assert len(got) == expected_unit_cube_voxels(8)
+    assert set(got.values()) == {0xFF102030}
 
 
 def test_package_imports_no_jax():
     root = Path(__file__).resolve().parent.parent
     code = (
         "import sys; import obj2voxel_tpu_torch, obj2voxel_tpu_torch.engine; "
+        "import obj2voxel_tpu_torch.api, obj2voxel_tpu_torch.cli; "
+        "from obj2voxel_tpu_torch.io import debug_stl, native, obj_loader, "
+        "png_io, stl_loader, writers; "
+        "from obj2voxel_tpu_torch.utils import meshes; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'obj2voxel_tpu' or m.startswith('obj2voxel_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -1,11 +1,15 @@
-"""K3's plain version against the JAX package's pack oracle, exactly."""
+"""K3's and K5's plain versions against the JAX package's pack oracles,
+exactly."""
 
 import numpy as np
 import pytest
 import torch
 
+from obj2voxel_tpu.ops.pack_pallas import pack_channels_ref as jax_pack_channels_ref
 from obj2voxel_tpu.ops.pack_pallas import pack_exact_ref as jax_pack_exact_ref
-from obj2voxel_tpu_torch.ops.pack_pallas import pack_exact, pack_exact_ref
+from obj2voxel_tpu_torch.ops.pack_pallas import (
+    pack_channels, pack_channels_ref, pack_exact, pack_exact_ref,
+)
 
 torch.set_num_threads(1)
 
@@ -52,7 +56,45 @@ def test_pack_exact_keeps_input_order():
     np.testing.assert_array_equal(v[0].numpy(), [1, 3, 4, 6, 0, 0, 0])
 
 
-@pytest.mark.parametrize("kernel", ["fused_pass", "segment_combine", "pack_exact"])
+@pytest.mark.parametrize("frac", [0.0, 0.01, 0.25, 0.9, 1.0])
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_pack_channels_plain_matches_jax(blocks, frac):
+    keys, vals = _stream(int(frac * 100) + blocks, 8192 * blocks, frac)
+    wk, wv, wn = jax_pack_channels_ref(keys, vals)
+    gk, gv, gn = pack_channels(torch.from_numpy(keys),
+                               tuple(torch.from_numpy(v) for v in vals))
+    assert int(gn) == wn and gn.dtype == torch.int32 and wn % 128 == 0
+    np.testing.assert_array_equal(gk.numpy(), wk)
+    for a, b in zip(gv, wv):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_pack_channels_block_layout():
+    # block 0: 3 live rows -> rows [0, 3), fillers to 128; block 1: 130 live
+    # rows -> rows [128, 258), fillers to 384; block 2: none
+    keys = np.full(3 * 8192, INV, np.int32)
+    keys[[5, 100, 8000]] = [7, 8, 9]
+    keys[8192 + np.arange(130) * 7] = np.arange(130)
+    vals = tuple(np.arange(keys.size, dtype=np.float32) + j for j in range(4))
+    k, v, n = pack_channels_ref(torch.from_numpy(keys),
+                                tuple(torch.from_numpy(x) for x in vals))
+    assert int(n) == 384
+    k = k.numpy()
+    np.testing.assert_array_equal(k[:3], [7, 8, 9])
+    assert (k[3:128] == INV).all() and (k[258:] == INV).all()
+    np.testing.assert_array_equal(k[128:258], np.arange(130))
+    np.testing.assert_array_equal(v[0].numpy()[:3], [5, 100, 8000])
+    assert (v[1].numpy()[258:] == 0).all()
+
+
+def test_pack_channels_needs_whole_blocks():
+    with pytest.raises(ValueError, match="multiple of 8192"):
+        pack_channels(torch.zeros(8192 + 256, dtype=torch.int32),
+                      tuple(torch.zeros(8192 + 256) for _ in range(4)))
+
+
+@pytest.mark.parametrize("kernel", ["fused_pass", "segment_combine", "pack_exact",
+                                    "pack_channels"])
 def test_wrappers_refuse_devices_without_kernel(kernel):
     # the plain version is taken only for CPU tensors; any other device
     # launches the CUDA kernel or raises, never falls back
@@ -67,6 +109,9 @@ def test_wrappers_refuse_devices_without_kernel(kernel):
             fused_pass(table, 0, 4, 0, 0, 8, 8, expand=1, budget=8)
         elif kernel == "segment_combine":
             segment_combine(keys, *vals, True)
+        elif kernel == "pack_channels":
+            pack_channels(torch.zeros(8192, dtype=torch.int32, device="meta"),
+                          tuple(torch.zeros(8192, device="meta") for _ in range(4)))
         else:
             pack_exact(keys, vals)
 
