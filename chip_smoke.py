@@ -1,22 +1,27 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from obj2voxel_tpu_torch/csrc, holds
-each against its plain PyTorch version on the card, drives the two main
-paths at real size -- `stream_slabs` on the 2M-triangle sphere at 1024^3,
-untextured BLEND as bench.py runs it, and the same table textured (one
-4096^2 REPEAT texture) under MAX -- and checks the outputs against known
-voxel counts, the CPU run of the same code, and the closed forms.
+each against its plain PyTorch version on the card, drives the main paths
+at real size -- `stream_slabs` on the 2M-triangle sphere at 1024^3,
+untextured BLEND as bench.py runs it, the same table textured (one 4096^2
+REPEAT texture) under MAX, the untextured table through the merge-runs
+route (K6), and the table at 2048^3 supersampled down to 1024^3 under MAX
+(the CLI's `-r 1024 -u`) -- and checks the outputs against known voxel
+counts, the default route, the CPU run of the same code, and the closed
+forms.
 
     python3 chip_smoke.py             # all phases; needs one CUDA device
-    python3 chip_smoke.py --phases 1,2,9
+    python3 chip_smoke.py --phases 1,13
 
-Phases: 1 build; 2 K1, 3 K2, 4 K3, 9 K4, 10 K5 against their plain
-versions; 5 untextured and 11 textured end to end, card against CPU; 6 the
-unit-cube closed forms; 7 untextured and 12 textured real size; 8 kernel
-timings beside each kernel's bound.  Prints one line per phase, a JSON line
-with the kernels' launches, errors, times and bounds, and as its last line
-{"ok": true, "device": {...}}.  Any failure raises and exits non-zero before
-that line is printed.
+Phases: 1 build; 2 K1 (and its input-area variant), 3 K2, 4 K3, 9 K4, 10
+K5, 13 K6 against their plain versions; 5 untextured end to end (with the
+merge-runs route, supersampling 2 and input-area weights) and 11 textured,
+card against CPU; 6 the unit-cube closed forms; 7 untextured, 12 textured,
+14 merge-runs and 15 supersampled real size; 8 kernel timings beside each
+kernel's bound.  Prints one line per phase, a JSON line with the kernels'
+launches, errors, times and bounds, and as its last line {"ok": true,
+"device": {...}}.  Any failure raises and exits non-zero before that line
+is printed.
 
 Bounds (`bound_ms`): the larger of the bytes the kernel must move (each
 input read once, each output written once) over 3.35 TB/s and its FP32
@@ -66,13 +71,17 @@ KERNELS = {
                    "obj2voxel_tpu/ops/clip_pallas.py:64"),
     "pack_channels": ("obj2voxel_tpu_torch/csrc/pack_channels.cu",
                       "obj2voxel_tpu/ops/pack_pallas.py:377"),
+    "merge_runs": ("obj2voxel_tpu_torch/csrc/merge_runs.cu",
+                   "obj2voxel_tpu/ops/merge_pallas.py:268"),
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
     "untextured": ("fused_pass", "segment_combine", "pack_exact"),
     "textured": ("segment_combine", "pack_exact", "clip_pairs"),
+    "merge_runs": ("fused_pass", "merge_runs", "segment_combine", "pack_exact"),
+    "supersampled": ("fused_pass", "segment_combine", "pack_exact"),
 }
-ALL_PHASES = set(range(1, 13))
+ALL_PHASES = set(range(1, 16))
 
 
 def fail(msg):
@@ -262,6 +271,12 @@ def phase_k1(stats):
             bound(stats, "fused_pass", n_rows * 48 + n * 20 + 4,
                   clip_flops(tri, vox, valid, 3) + 28 * int(valid.sum()))
             del tri, vox, valid
+            # the input-area variant on the same pass
+            n, e = compare_pass(fused_pass(*args, ref_weights=True, **kw),
+                                fused_pass_ref(*args, ref_weights=True, **kw),
+                                "K1 ref_weights expand=8")
+            details.append(f"ref_weights:{n}")
+            err = max(err, e)
     # one giant slanted triangle at 2048^3: AABB 2048 x 2048 x 4 = 2^24 slots
     giant = np.zeros((1, 24), np.float32)
     giant[0, 0:9] = [0.5, 0.5, 0.5, 2047.5, 0.5, 3.5, 0.5, 2047.5, 3.5]
@@ -383,6 +398,88 @@ def phase_k5(stats):
 
     pack_phase(stats, "pack_channels", pack_channels, pack_channels_ref,
                "10 K5 pack_channels vs plain")
+
+
+def sphere_slab_runs(table, aabb):
+    """K6's input on the merge-runs route: the live outputs of the passes of
+    the sphere's slab with the most passes, each stable-sorted by key, laid
+    end to end; returns (keys, chans, run offsets)."""
+    from obj2voxel_tpu_torch.engine import _schedule_passes
+    from obj2voxel_tpu_torch.ops.combine import sort_channels
+    from obj2voxel_tpu_torch.ops.merge_pallas import plan_runs
+    from obj2voxel_tpu_torch.ops.pass_fused import fused_pass
+    from obj2voxel_tpu_torch.ops.plan_device import gather_ordered, plan_mesh_device
+
+    order, segs = plan_mesh_device(table, aabb[0].shape[0], SPHERE_RES,
+                                   SPHERE_RES, 4 * BUDGET, group=8)
+    ordered = gather_ordered(table, order, segs[-1].r1, 8)
+    slabs = {}
+    for seg in segs:
+        slabs.setdefault((seg.z_lo, seg.z_hi), []).append(seg)
+    (z_lo, z_hi), passes = max(
+        ((zz, _schedule_passes(ss, BUDGET)) for zz, ss in slabs.items()),
+        key=lambda item: len(item[1]))
+    runs = []
+    for expand, budget, r0, n_rows, local_base, wide in passes:
+        out = fused_pass(ordered, r0, n_rows, local_base, z_lo, z_hi, SPHERE_RES,
+                         expand=expand, budget=budget, wide_local=wide)
+        c = int(out[5].item())
+        runs.append(sort_channels(out[0][:c], tuple(x[:c] for x in out[1:5])))
+    keys = torch.cat([r[0] for r in runs])
+    chans = tuple(torch.cat([r[1][j] for r in runs]) for j in range(4))
+    return keys, chans, plan_runs([r[0].shape[0] for r in runs])[0]
+
+
+def random_runs(rng, counts, key_hi):
+    """Key-sorted runs of `counts` rows, keys below key_hi, on the card."""
+    keys = np.concatenate([np.sort(rng.integers(0, key_hi, c)) for c in counts])
+    chans = tuple(torch.from_numpy(rng.random(keys.size, dtype=np.float32)).cuda()
+                  for _ in range(4))
+    offsets = np.concatenate([[0], np.cumsum(counts)]).tolist()
+    return torch.from_numpy(keys.astype(np.int32)).cuda(), chans, offsets
+
+
+def phase_k6(stats):
+    from obj2voxel_tpu_torch.ops.merge_pallas import merge_runs, merge_runs_ref
+
+    t0 = time.perf_counter()
+
+    def check(keys, chans, offsets, what):
+        """K6 equal to its plain version and to the stable sort, bit for
+        bit."""
+        gk, gc = merge_runs(keys, chans, offsets)
+        wk, wc = merge_runs_ref(keys, chans, offsets)
+        if not (torch.equal(gk, wk) and all(torch.equal(a, b) for a, b in zip(gc, wc))):
+            fail(f"K6 {what}: differs from the plain version")
+        sk, idx = torch.sort(keys, stable=True)
+        if not (torch.equal(gk, sk) and all(torch.equal(a, c[idx])
+                                            for a, c in zip(gc, chans))):
+            fail(f"K6 {what}: differs from the stable sort")
+        return f"{what}: {len(offsets) - 1} runs, {keys.numel()} rows"
+
+    table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES)
+    keys, chans, offsets = sphere_slab_runs(torch.from_numpy(table_np).cuda(), aabb)
+    details = [check(keys, chans, offsets, "sphere slab")]
+    rng = np.random.default_rng(13)
+    for s in (2, 3, 11, 32):
+        counts = rng.integers(0, 400_000, s)
+        counts[s // 2] = 0  # an empty run
+        # few distinct keys: stability is the whole test
+        details.append(check(*random_runs(rng, counts, 64), f"S={s} dup"))
+        details.append(check(*random_runs(rng, counts, 1 << 30), f"S={s}"))
+
+    def library():
+        sk, idx = torch.sort(keys, stable=True)
+        return sk, tuple(c[idx] for c in chans)
+
+    stats["merge_runs"].update(
+        ms=cuda_ms(lambda: merge_runs(keys, chans, offsets)),
+        plain_ms=cuda_ms(lambda: merge_runs_ref(keys, chans, offsets)),
+        library_ms=cuda_ms(library), max_abs_err=0.0,
+    )
+    # each row (key + 4 channels) read once and written once
+    bound(stats, "merge_runs", keys.numel() * 40, 0)
+    phase("13 K6 merge_runs vs plain", t0, "; ".join(details))
 
 
 def grazing_pairs(n, seed=9):
@@ -510,9 +607,40 @@ def e2e_soup(textured, seed):
     return details
 
 
+OPTION_CASES = (
+    ("merge_runs", dict(resolution=256, merge_runs=True)),
+    ("supersampling 2", dict(resolution=128, supersampling=2)),
+    ("input-area weights", dict(resolution=256, input_area_weights=True)),
+)
+
+
+def e2e_options():
+    """This slice's options on 5000-triangle seeded soups, untextured and
+    textured, card against CPU."""
+    from obj2voxel_tpu_torch import BLEND_STRATEGY, MAX_STRATEGY, voxelize_soup
+
+    bounds = (np.zeros(3, np.float32), np.ones(3, np.float32))
+    details = []
+    for textured, seed in ((False, 15), (True, 16)):
+        soup, pool = random_soup(5000, textured, seed)
+        for name, opts in OPTION_CASES:
+            for strategy, sname in ((MAX_STRATEGY, "max"), (BLEND_STRATEGY, "blend")):
+                kw = dict(strategy=strategy, bounds=bounds, max_pass_budget=1 << 14,
+                          **opts)
+                gpu = voxel_dict(voxelize_soup(soup, pool, **kw))
+                cpu = voxel_dict(voxelize_soup(soup, pool, device="cpu", **kw))
+                what = f"{'textured' if textured else 'untextured'} {name} {sname}"
+                details.append(f"{what}: " + compare_voxels(
+                    gpu, cpu, strategy == BLEND_STRATEGY, f"E2E {what}"))
+    return details
+
+
 def phase_e2e():
     t0 = time.perf_counter()
-    phase("5 end-to-end cuda vs cpu", t0, "; ".join(e2e_soup(False, 5)))
+    details = e2e_soup(False, 5) + e2e_options()
+    with tempfile.TemporaryDirectory() as tmp:
+        details.append(instance_and_cli(write_obj(Path(tmp)), supersampling=2))
+    phase("5 end-to-end cuda vs cpu", t0, "; ".join(details))
 
 
 def write_obj(d, n=300, seed=13):
@@ -536,44 +664,51 @@ def write_obj(d, n=300, seed=13):
     return d / "m.obj"
 
 
-def phase_e2e_textured():
+def instance_and_cli(obj, supersampling=1):
+    """`Instance` (with a fallback texture) and the CLI on the OBJ at r = 96,
+    on the card and on the CPU: their bytes must be equal."""
     import obj2voxel_tpu_torch as pt
 
+    outs = {}
+    for device in ("cuda", "cpu"):
+        rng = np.random.default_rng(14)
+        inst = pt.Instance(device)
+        tex = pt.Texture()
+        tex.load_pixels(rng.integers(0, 256, 5 * 7 * 3, dtype=np.uint8), 5, 7, 3)
+        inst.set_texture(tex)
+        inst.set_input_file(str(obj))
+        inst.set_output_memory("vl32")
+        inst.set_resolution(96)
+        inst.set_supersampling(supersampling)
+        if inst.voxelize() != pt.ERR_OK:
+            fail(f"Instance on {device} failed")
+        outs[device] = inst.get_output_memory()
+    if outs["cuda"] != outs["cpu"]:
+        fail("Instance: VL32 bytes differ between the card and the cpu")
+    n_inst = len(outs["cuda"]) // 16
+    plys = []
+    for i, device in enumerate(("cuda", "cpu")):
+        plys.append(obj.parent / f"{i}.ply")
+        cmd = [sys.executable, "-m", "obj2voxel_tpu_torch.cli", str(obj),
+               str(plys[-1]), "-r", "96", "--device", device]
+        cmd += ["-u"] if supersampling == 2 else []
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=Path(__file__).resolve().parent)
+        if proc.returncode != 0:
+            fail(f"CLI on {device}: {proc.stdout}{proc.stderr}")
+    ply = [p.read_bytes() for p in plys]
+    if ply[0] != ply[1]:
+        fail("CLI: PLY bytes differ between cuda and cpu")
+    return (f"Instance (fallback texture, supersampling {supersampling}) {n_inst} "
+            f"voxels, bytes equal; CLI{' -u' if supersampling == 2 else ''} PLY "
+            f"{len(ply[0])} bytes equal")
+
+
+def phase_e2e_textured():
     t0 = time.perf_counter()
     details = e2e_soup(True, 7)
     with tempfile.TemporaryDirectory() as tmp:
-        obj = write_obj(Path(tmp))
-        rng = np.random.default_rng(14)
-        outs = {}
-        for device in ("cuda", "cpu"):
-            inst = pt.Instance(device)
-            tex = pt.Texture()
-            tex.load_pixels(rng.integers(0, 256, 5 * 7 * 3, dtype=np.uint8), 5, 7, 3)
-            inst.set_texture(tex)
-            inst.set_input_file(str(obj))
-            inst.set_output_memory("vl32")
-            inst.set_resolution(96)
-            if inst.voxelize() != pt.ERR_OK:
-                fail(f"Instance on {device} failed")
-            outs[device] = inst.get_output_memory()
-            rng = np.random.default_rng(14)
-        if outs["cuda"] != outs["cpu"]:
-            fail("Instance: VL32 bytes differ between the card and the cpu")
-        n_inst = len(outs["cuda"]) // 16
-        plys = []
-        for i, device in enumerate(("cuda", "cpu")):
-            plys.append(Path(tmp) / f"{i}.ply")
-            cmd = [sys.executable, "-m", "obj2voxel_tpu_torch.cli", str(obj),
-                   str(plys[-1]), "-r", "96", "--device", device]
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                                  cwd=Path(__file__).resolve().parent)
-            if proc.returncode != 0:
-                fail(f"CLI on {device}: {proc.stdout}{proc.stderr}")
-        ply = [p.read_bytes() for p in plys]
-        if ply[0] != ply[1]:
-            fail("CLI: PLY bytes differ between cuda and cpu")
-    details.append(f"Instance (fallback texture) {n_inst} voxels, bytes equal; "
-                   f"CLI PLY {len(ply[0])} bytes equal")
+        details.append(instance_and_cli(write_obj(Path(tmp))))
     phase("11 textured end-to-end cuda vs cpu", t0, "; ".join(details))
 
 
@@ -598,18 +733,22 @@ def phase_closed_forms():
     phase("6 closed forms (unit cube)", t0, " ".join(details))
 
 
-def drive_sphere(table, pool, aabb, is_blend, check):
-    """One run of the main path: stream_slabs over the sphere table with
-    outputs kept on the device; returns (voxel count, the sum of `check`
-    over the slabs' outputs, read back once at the end)."""
+def sphere_slabs(table, pool, aabb, is_blend, stride=SPHERE_RES, **kw):
+    """One run of a main path over the sphere table: stream_slabs's
+    (xyz, argb, count) per slab, the outputs kept on the device."""
     import obj2voxel_tpu_torch as pt
     from obj2voxel_tpu_torch.engine import MAX_PASS_BUDGET
 
+    return pt.stream_slabs(table, pool, aabb_host=aabb, stride=stride,
+                           z_extent=stride, is_blend=is_blend,
+                           pair_tile=MAX_PASS_BUDGET, device_outputs=True, **kw)
+
+
+def drive_sphere(table, pool, aabb, is_blend, check, **kw):
+    """One run of a main path; returns (voxel count, the sum of `check` over
+    the slabs' outputs, read back once at the end)."""
     voxels, checks = 0, []
-    for xyz, argb, count in pt.stream_slabs(
-        table, pool, aabb_host=aabb, stride=SPHERE_RES, z_extent=SPHERE_RES,
-        is_blend=is_blend, pair_tile=MAX_PASS_BUDGET, device_outputs=True,
-    ):
+    for xyz, argb, count in sphere_slabs(table, pool, aabb, is_blend, **kw):
         voxels += count
         checks.append(check(xyz[:count], argb[:count]))
     total = int(torch.stack(checks).sum().item()) if checks else 0
@@ -617,26 +756,40 @@ def drive_sphere(table, pool, aabb, is_blend, check):
     return voxels, total
 
 
-def real_size(name, table, pool, aabb, is_blend, check, info):
+def touch(xyz, argb):
+    """Touch every output byte on the device."""
+    return argb.view(torch.int32).sum() + xyz.sum()
+
+
+def timed_runs(fn, want, what, n=3):
+    """Host seconds of n runs of fn, each ending in a synchronize; each must
+    return `want`."""
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        if fn() != want:
+            fail(f"{what}: output changed between runs")
+        times.append(time.perf_counter() - t)
+    return times
+
+
+def real_size(name, table, pool, aabb, is_blend, check, info, want=SPHERE_VOXELS,
+              **kw):
     """Drive one main path with the launch counts reset just before it and
     read just after; then the warm median of 3 runs."""
     import obj2voxel_tpu_torch as pt
 
     pt.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    voxels, checked = drive_sphere(table, pool, aabb, is_blend, check)
+    voxels, checked = drive_sphere(table, pool, aabb, is_blend, check, **kw)
     launches = dict(pt.LAUNCHES)
-    if voxels != SPHERE_VOXELS:
-        fail(f"{name} sphere: {voxels} voxels, want {SPHERE_VOXELS}")
+    if voxels != want:
+        fail(f"{name} sphere: {voxels} voxels, want {want}")
     for kernel in PATH_KERNELS[name]:
         if launches[kernel] <= 0:
             fail(f"{name} main path launched {kernel} no time")
-    times = []
-    for _ in range(3):
-        t = time.perf_counter()
-        if drive_sphere(table, pool, aabb, is_blend, check) != (voxels, checked):
-            fail(f"{name} sphere: output changed between runs")
-        times.append(time.perf_counter() - t)
+    times = timed_runs(lambda: drive_sphere(table, pool, aabb, is_blend, check, **kw),
+                       (voxels, checked), f"{name} sphere")
     med = sorted(times)[1]
     peak = torch.cuda.max_memory_allocated() / 2**30
     return launches, checked, (f"{voxels} voxels; warm median {med:.4f} s = "
@@ -651,14 +804,83 @@ def phase_real_size(info):
     t0 = time.perf_counter()
     table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES)
     table = pt.table_from_numpy(table_np, "cuda")
-
-    def touch(xyz, argb):
-        # touch every output byte on the device
-        return argb.view(torch.int32).sum() + xyz.sum()
-
     launches, _, detail = real_size("untextured", table, None, aabb, True, touch,
                                     info)
     phase("7 real size (2M-tri sphere @ 1024^3 BLEND)", t0, detail)
+    return launches
+
+
+def phase_merge_runs(info):
+    """The untextured sphere through the merge-runs route (K6): every slab
+    equal to the default route's, then both routes timed in turns."""
+    import obj2voxel_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES)
+    table = pt.table_from_numpy(table_np, "cuda")
+    routes = [[(xyz[:c], argb[:c]) for xyz, argb, c in
+               sphere_slabs(table, None, aabb, True, merge_runs=flag)]
+              for flag in (False, True)]
+    if len(routes[0]) != len(routes[1]) or not all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(*routes)):
+        fail("merge-runs sphere: slabs differ from the default route's")
+    n_slabs = len(routes[0])
+    del routes
+    launches, _, detail = real_size("merge_runs", table, None, aabb, True, touch,
+                                    info, merge_runs=True)
+    # the A/B in turns: default, merge-runs, merge-runs, default, ...
+    want = drive_sphere(table, None, aabb, True, touch)
+    ab = {False: [], True: []}
+    for flag in (False, True, True, False, False, True):
+        ab[flag] += timed_runs(lambda: drive_sphere(table, None, aabb, True, touch,
+                                                    merge_runs=flag),
+                               want, "merge-runs A/B", n=1)
+    med = {flag: sorted(t)[1] for flag, t in ab.items()}
+    phase("14 real size merge-runs (2M-tri sphere @ 1024^3 BLEND, K6)", t0,
+          f"{detail}; {n_slabs} slabs equal to the default route's; in turns "
+          f"default {med[False]:.4f} s (runs {[round(x, 4) for x in ab[False]]}), "
+          f"merge-runs {med[True]:.4f} s (runs {[round(x, 4) for x in ab[True]]})")
+    return launches
+
+
+def phase_supersampled(info):
+    """bench.py's sphere built at stride 2048 (the CLI's -r 1024 -u) through
+    stream_slabs(do_down=True) under MAX: its voxel set is the per-axis
+    halving of the same table's output at 2048^3, every voxel white."""
+    import obj2voxel_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    fine_res = 2 * SPHERE_RES
+    table_np, aabb = sphere_table(SPHERE_TRIS, fine_res)
+    table = pt.table_from_numpy(table_np, "cuda")
+
+    def coarse_keys(slabs, shift):
+        keys = []
+        for xyz, _, c in slabs:
+            v = xyz[:c].to(torch.int64) >> shift
+            keys.append((v[:, 2] * SPHERE_RES + v[:, 1]) * SPHERE_RES + v[:, 0])
+        return torch.cat(keys)
+
+    fine = coarse_keys(sphere_slabs(table, None, aabb, False, stride=fine_res), 1)
+    n_fine = fine.numel()
+    want = torch.unique(fine)
+    del fine
+    got = coarse_keys(sphere_slabs(table, None, aabb, False, stride=fine_res,
+                                   do_down=True), 0)
+    if got.numel() != want.numel() or not torch.equal(torch.sort(got)[0], want):
+        fail("supersampled sphere: voxels differ from the halved 2048^3 output")
+
+    def not_white(xyz, argb):
+        return (argb.view(torch.int32) != -1).sum()
+
+    launches, bad, detail = real_size(
+        "supersampled", table, None, aabb, False, not_white, info,
+        want=want.numel(), stride=fine_res, do_down=True)
+    if bad:
+        fail(f"supersampled sphere: {bad} voxels not 0xFFFFFFFF")
+    phase("15 real size supersampled (2M-tri sphere @ 2048^3 -> 1024^3 MAX)", t0,
+          f"{detail}; the halving of {n_fine} voxels at 2048^3; all ARGB 0xFFFFFFFF")
     return launches
 
 
@@ -729,7 +951,7 @@ def main():
 
     stats = {name: {} for name in KERNELS}
     for num, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3), (9, phase_k4),
-                    (10, phase_k5)):
+                    (10, phase_k5), (13, phase_k6)):
         if want & {num, 8}:
             fn(stats)
     if 5 in want:
@@ -743,6 +965,10 @@ def main():
         by_path["untextured"] = phase_real_size(info)
     if 12 in want:
         by_path["textured"] = phase_real_size_textured(info)
+    if 14 in want:
+        by_path["merge_runs"] = phase_merge_runs(info)
+    if 15 in want:
+        by_path["supersampled"] = phase_supersampled(info)
     if 8 in want:
         for name, s in stats.items():
             lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f} ms"

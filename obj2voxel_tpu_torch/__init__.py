@@ -4,7 +4,8 @@ NVIDIA Hopper.
 The single-device voxelizer: `Instance` (the reference's C API), the CLI
 (`python -m obj2voxel_tpu_torch.cli`), and the engine beneath them
 (`voxelize_soup` -> `voxelize_grid` -> `stream_slabs`) for untextured and
-textured meshes, with MAX and BLEND color strategies.  Everything runs on a
+textured meshes, with MAX and BLEND color strategies, 2x supersampling,
+input-area weights and the merge-runs slab merge.  Everything runs on a
 CUDA device unless the caller asks for the CPU: on a CPU device every kernel
 wrapper runs its plain PyTorch version, on a CUDA device it launches the
 kernel built from `csrc/` (see ops/_cuda.py).  The JAX package

@@ -21,6 +21,10 @@
 // exact dense prefix in slot order and the count.  Giant-triangle passes
 // (`wide_local`) decode the rank with exact integer div/mod, so they run
 // through this kernel too.
+//
+// With `ref_weights` (the TPU kernel's variant of the same name, the
+// engine's input-area weights) an occupied voxel weighs the area of the
+// whole table triangle instead of its clipped piece.
 #include "o2v_clip.cuh"
 #include "o2v_compact.cuh"
 
@@ -44,6 +48,21 @@ __device__ float clip_area(const float* __restrict__ t, float vx, float vy,
   return fan_area<3>(a, n, unused_u, unused_v);
 }
 
+// Area of the whole triangle, 0.5 * |e1 x e2| (pass_fused.py:191-197, in
+// its order): the weight of every occupied voxel under input-area weights.
+__device__ float triangle_area(const float* __restrict__ t) {
+  const float e1x = __fsub_rn(t[3], t[0]), e1y = __fsub_rn(t[4], t[1]),
+              e1z = __fsub_rn(t[5], t[2]);
+  const float e2x = __fsub_rn(t[6], t[0]), e2y = __fsub_rn(t[7], t[1]),
+              e2z = __fsub_rn(t[8], t[2]);
+  const float cx = __fsub_rn(__fmul_rn(e1y, e2z), __fmul_rn(e1z, e2y));
+  const float cy = __fsub_rn(__fmul_rn(e1z, e2x), __fmul_rn(e1x, e2z));
+  const float cz = __fsub_rn(__fmul_rn(e1x, e2y), __fmul_rn(e1y, e2x));
+  const float sq = __fadd_rn(__fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cy, cy)),
+                             __fmul_rn(cz, cz));
+  return __fmul_rn(0.5f, __fsqrt_rn(sq));
+}
+
 // Float-reciprocal divmod with one correction step (pass_fused.py
 // `_divmod_f`): exact for 0 <= lf < 2^23.
 __device__ __forceinline__ void divmod_f(float lf, float sf, float& rem,
@@ -59,8 +78,9 @@ __global__ void __launch_bounds__(COMPACT_TILE)
 fused_pass_kernel(const float* __restrict__ table, int n_table_rows, int r0,
                   int n_rows, int local_base, int z_lo, int z_hi, int stride,
                   int log2_expand, int budget, int wide_local,
-                  int* __restrict__ keys, float* __restrict__ w_out,
-                  float* __restrict__ r_out, float* __restrict__ g_out,
+                  int ref_weights, int* __restrict__ keys,
+                  float* __restrict__ w_out, float* __restrict__ r_out,
+                  float* __restrict__ g_out,
                   float* __restrict__ b_out, int* __restrict__ tile_counts) {
   __shared__ int s_warp[COMPACT_TILE / 32 + 1];
   const int s = blockIdx.x * COMPACT_TILE + threadIdx.x;
@@ -102,7 +122,8 @@ fused_pass_kernel(const float* __restrict__ table, int n_table_rows, int r0,
         vyf = __fadd_rn(static_cast<float>(tmin[1]), my);
         vzf = __fadd_rn(static_cast<float>(tmin[2]), mz);
       }
-      const float area = clip_area(t, vxf, vyf, vzf);
+      float area = clip_area(t, vxf, vyf, vzf);
+      if (ref_weights && area > 0.0f) area = triangle_area(t);
       if (area > 0.0f) {
         const int vx = static_cast<int>(vxf);
         const int vy = static_cast<int>(vyf);
@@ -136,13 +157,14 @@ extern "C" int o2v_fused_pass(int* keys_out, float* w_out, float* r_out,
                               const float* table, int n_table_rows, int r0,
                               int n_rows, int local_base, int z_lo, int z_hi,
                               int stride, int log2_expand, int budget,
-                              int wide_local, void* stream_ptr) {
+                              int wide_local, int ref_weights,
+                              void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int n_tiles = (budget + COMPACT_TILE - 1) / COMPACT_TILE;
   fused_pass_kernel<<<n_tiles, COMPACT_TILE, 0, stream>>>(
       table, n_table_rows, r0, n_rows, local_base, z_lo, z_hi, stride,
-      log2_expand, budget, wide_local, s_keys, s_w, s_r, s_g, s_b,
-      tile_counts);
+      log2_expand, budget, wide_local, ref_weights, s_keys, s_w, s_r, s_g,
+      s_b, tile_counts);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(compact_from_tile_counts(

@@ -14,18 +14,38 @@ A pass is one of two shapes, chosen per mesh as the JAX package chooses
 compaction in one kernel); a mesh whose texture pool holds more than one
 pixel takes `_textured_pass` (rank decode in torch ops, K4 clip with UVs,
 texture sampling, K3 compaction).  Both return the live pairs in slot order.
-Every slab, single-pass or not, takes the same merge tail: a stable sort of
-the slot-ordered pass outputs equals the stable sort of the full pair
-stream, so MAX ties still go to the earliest pair.
+With input-area weights (`input_area_weights`, or O2V_WEIGHT_MODE=input_area)
+an occupied voxel weighs its whole triangle's area instead of the clipped
+piece's (obj2voxel_tpu/engine.py:488-501).
+
+Merges (`_merge_slab`).  By default every slab takes one merge tail: a
+stable sort of the slot-ordered pass outputs equals the stable sort of the
+full pair stream, so MAX ties go to the earliest pair.  With `merge_runs`
+(or O2V_MERGE_RUNS=1; off by default, as in the JAX package) each pass's
+live pairs are first stable-sorted by key, and a slab of 2 to 32 runs
+merges them with K6 instead of sorting the concatenation; a single run goes
+straight to K2 and K3, more than 32 take the sort.  Equal keys arrive in
+(pass, slot) order either way, so the two routes give the same bytes.
+
+2x supersampling (`do_down`) samples at twice the resolution and halves
+each axis in the merge (obj2voxel_tpu/engine.py:233-264, :629-647): a
+single-pass slab combines at the fine resolution, downscales the combined
+keys, and combines again; a multi-pass slab stable-sorts each pass by fine
+key, concatenates, downscales and combines once.  So a supersampled MAX tie
+goes to the earlier pass, then the earlier fine key, then the earlier slot
+(the JAX package on the CPU gives the same; its TPU default, whose passes
+stay in slot order, would break a within-pass tie by slot).  Slab heights
+are even, so no 2x2x2 cell straddles two slabs.  Supersampling bypasses the
+merge-runs route, as in the JAX package: its merge sorts after the
+downscale.
 
 The device defaults to CUDA; on a CPU tensor each kernel wrapper takes its
 plain version, on a CUDA tensor it launches the hand-written kernel.
-
-Not ported yet (they raise NotImplementedError): supersampling > 1 and
-input-area weights.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -36,10 +56,13 @@ from .io import debug_stl
 from .ops._cuda import INVALID_KEY
 from .ops.clip_pallas import clip_pairs
 from .ops.color import sample_pair_colors_uv, upload_pool
-from .ops.combine import finalize_colors, pack_argb, premultiply, sort_channels
+from .ops.combine import (
+    downscale_keys, finalize_colors, pack_argb, premultiply, sort_channels,
+)
 from .ops.combine_pallas import segment_combine
+from .ops.merge_pallas import MAX_RUNS, merge_runs as merge_sorted_runs, plan_runs
 from .ops.pack_pallas import pack_exact
-from .ops.pass_fused import fused_pass, slot_voxels
+from .ops.pass_fused import fused_pass, slot_voxels, triangle_area
 from .ops.plan import plan_mesh
 from .ops.plan_device import gather_ordered, plan_mesh_device
 from .ops.subdivide import subdivide_soup
@@ -157,18 +180,21 @@ def pass_pairs(table_t, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
 
 
 def _textured_pass(table_t, pool, r0, n_rows, local_base, z_lo, z_hi, stride,
-                   *, expand, budget, wide_local):
+                   *, expand, budget, wide_local, ref_weights=False):
     """One pass of a textured mesh (obj2voxel_tpu/engine.py:410-524, the
     unfused branch of `_bucket_pass`), with `fused_pass`'s contract: K4
     clips all `budget` pairs of `pass_pairs` with their UVs, the pair's
     color is sampled from the pool, and K3 compacts the live pairs (valid
-    and w > 0) in slot order.  `table_t` is channel-major (24, M).  Returns
-    (key, w, wr, wg, wb (budget,), count (1,) int32)."""
+    and w > 0) in slot order.  `ref_weights` weighs each occupied voxel by
+    its whole triangle's area.  `table_t` is channel-major (24, M).
+    Returns (key, w, wr, wg, wb (budget,), count (1,) int32)."""
     tri, vox, attrs, (vx, vy, vz), valid = pass_pairs(
         table_t, r0, n_rows, local_base, z_lo, z_hi, stride, expand=expand,
         budget=budget, wide_local=wide_local)
     out = clip_pairs(tri, vox)
     w = torch.where(valid, out[0], 0.0)
+    if ref_weights:
+        w = torch.where(w > 0, triangle_area(tri), 0.0)
     colors = sample_pair_colors_uv(
         out[1], out[2], attrs[0].to(torch.int64), attrs[1:4].T,
         attrs[4].to(torch.int64), *pool,
@@ -179,40 +205,76 @@ def _textured_pass(table_t, pool, r0, n_rows, local_base, z_lo, z_hi, stride,
     return (k, *chans, count)
 
 
+def _combine_presorted(sorted_keys, chans, is_blend):
+    """K2 -> K3 over a key-sorted stream: compacted unique (keys, chans,
+    count (1,)) in key order."""
+    tk, *tv = segment_combine(sorted_keys, *chans, is_blend)
+    return pack_exact(tk, tuple(tv))
+
+
 def _merge_keys(keys, chans, is_blend):
     """Stable sort -> K2 -> K3: compacted unique (keys, chans, count (1,))
     in slab-local key order."""
-    sk, sch = sort_channels(keys, chans)
-    tk, *tv = segment_combine(sk, *sch, is_blend)
-    return pack_exact(tk, tuple(tv))
+    return _combine_presorted(*sort_channels(keys, chans), is_blend)
+
+
+def _cat(runs):
+    """Concatenate (keys, chans) runs."""
+    keys = torch.cat([x[0] for x in runs])
+    return keys, tuple(torch.cat([x[1][j] for x in runs]) for j in range(4))
 
 
 def _fold_outputs(chunk, is_blend):
     """Merge a group of (keys, chans) pass outputs into one compacted
-    output, sliced to its live count."""
-    keys = torch.cat([c[0] for c in chunk])
-    chans = tuple(torch.cat([c[1][j] for c in chunk]) for j in range(4))
-    k, ch, count = _merge_keys(keys, chans, is_blend)
+    output in key order, sliced to its live count."""
+    k, ch, count = _merge_keys(*_cat(chunk), is_blend)
     n = int(count.item())
     return k[:n], tuple(c[:n] for c in ch)
 
 
-def _finalize_merge(keys, chans, z_lo, stride):
-    """Slab-local keys -> (xyz (P, 3) int32, argb (P,) uint32)."""
+def _finalize_merge(keys, chans, count, z_lo, stride, do_down=False):
+    """Slab-local keys -> (xyz (P, 3) int32, argb (P,) uint32, count); with
+    do_down the keys are in the half-resolution grid."""
+    if do_down:
+        z_lo, stride = z_lo // 2, stride // 2
     k = keys.to(torch.int64)
     x = k % stride
     y = (k // stride) % stride
     z = k // (stride * stride) + z_lo
     xyz = torch.stack([x, y, z], dim=-1).to(torch.int32)
-    return xyz, pack_argb(finalize_colors(chans))
+    return xyz, pack_argb(finalize_colors(chans)), count
 
 
-def _merge_pass(keys, chans, z_lo, is_blend, stride):
-    """Merge one slab's pass outputs and finalize: (xyz, argb, count (1,)).
-    Rows past count are padding."""
-    k, ch, count = _merge_keys(keys, chans, is_blend)
-    xyz, argb = _finalize_merge(k, ch, z_lo, stride)
-    return xyz, argb, count
+def _merge_slab(live, n_passes, z_lo, *, is_blend, stride, do_down, merge_runs):
+    """Merge one slab's live pass outputs, (keys, chans) in slot order, and
+    finalize: (xyz, argb, count (1,)); rows past count are padding.  The
+    routes are the module docstring's."""
+    if do_down and n_passes == 1:
+        # combine at the fine resolution, then downscale and combine again
+        k, ch, _ = _merge_keys(*live[0], is_blend)
+        k, ch, count = _merge_keys(downscale_keys(k, stride), ch, is_blend)
+        return _finalize_merge(k, ch, count, z_lo, stride, do_down)
+    if do_down or merge_runs:
+        live = [sort_channels(k, ch) for k, ch in live]
+    while sum(x[0].shape[0] for x in live) > MERGE_CAP:
+        before = sum(x[0].shape[0] for x in live)
+        groups = plan_fold_chunks([x[0].shape[0] for x in live], MERGE_CAP)
+        if len(groups) == 1:
+            break
+        live = [_fold_outputs([live[j] for j in g], is_blend) for g in groups]
+        if sum(x[0].shape[0] for x in live) >= before:
+            break  # folding cannot shrink further
+    keys, chans = _cat(live)
+    if do_down:
+        keys = downscale_keys(keys, stride)
+    elif merge_runs and len(live) <= MAX_RUNS:
+        if len(live) > 1:
+            offsets, _ = plan_runs([x[0].shape[0] for x in live])
+            keys, chans = merge_sorted_runs(keys, chans, offsets)
+        return _finalize_merge(*_combine_presorted(keys, chans, is_blend),
+                               z_lo, stride)
+    return _finalize_merge(*_merge_keys(keys, chans, is_blend), z_lo, stride,
+                           do_down)
 
 
 def _pull(arr, count):
@@ -234,12 +296,14 @@ def voxelize_soup(
     max_pass_budget: int = MAX_PASS_BUDGET,
     subdivide: bool = True,
     group: int = PLAN_GROUP,
+    merge_runs: bool | None = None,
+    input_area_weights: bool | None = None,
 ):
     """Voxelize a triangle soup on `device` (a CUDA device unless the caller
     asks for the CPU); yields (xyz int32 (K, 3), argb uint32 (K,)) numpy
-    arrays per z-slab."""
-    if supersampling != 1:
-        raise NotImplementedError("supersampling > 1 is not ported yet")
+    arrays per z-slab.  `supersampling` 2 samples at twice the resolution
+    and halves each axis; `merge_runs` and `input_area_weights` are
+    `stream_slabs`'s."""
     device = torch.device(device)
     n = len(soup)
     if n == 0:
@@ -247,6 +311,7 @@ def voxelize_soup(
 
     sample_res = resolution * supersampling
     is_blend = bool(strategy == BLEND_STRATEGY)
+    do_down = bool(supersampling > 1)
     if bounds is None:
         mesh_min, mesh_max = mesh_bounds(soup.verts)
     else:
@@ -270,8 +335,9 @@ def voxelize_soup(
     gen = voxelize_grid(
         verts_host, uvs_host, types_host, rgb_host, tex_host, pool_dev,
         device=device, stride=sample_res, z_extent=sample_res,
-        is_blend=is_blend, pair_tile=pair_tile,
-        max_pass_budget=max_pass_budget, group=group,
+        is_blend=is_blend, do_down=do_down, pair_tile=pair_tile,
+        max_pass_budget=max_pass_budget, group=group, merge_runs=merge_runs,
+        input_area_weights=input_area_weights,
     )
     del verts_host, uvs_host, types_host, rgb_host, tex_host
     yield from gen
@@ -283,13 +349,17 @@ def voxelize_grid(
     stride: int,
     z_extent: int,
     is_blend: bool,
+    do_down: bool = False,
     pair_tile: int = PAIR_TILE,
     max_pass_budget: int = MAX_PASS_BUDGET,
     group: int = PLAN_GROUP,
+    merge_runs: bool | None = None,
+    input_area_weights: bool | None = None,
 ):
     """Streaming loop over z-slabs for pre-transformed triangles on a grid
     spanning [0, stride) in x/y and [0, z_extent) in z.  `pool` is the
-    device texture pool (ops/color.upload_pool) or None."""
+    device texture pool (ops/color.upload_pool) or None; the other options
+    are `stream_slabs`'s."""
     n_sub = verts_host.shape[0]
     if n_sub == 0:
         return
@@ -303,8 +373,9 @@ def voxelize_grid(
     del verts_host, uvs_host, types_host, rgb_host, tex_host
     yield from stream_slabs(
         table, pool, aabb_host=(vmin_h, vmax_h), stride=stride, z_extent=z_extent,
-        is_blend=is_blend, pair_tile=pair_tile,
-        max_pass_budget=max_pass_budget, group=group,
+        is_blend=is_blend, do_down=do_down, pair_tile=pair_tile,
+        max_pass_budget=max_pass_budget, group=group, merge_runs=merge_runs,
+        input_area_weights=input_area_weights,
     )
 
 
@@ -316,10 +387,13 @@ def stream_slabs(
     stride: int,
     z_extent: int,
     is_blend: bool,
+    do_down: bool = False,
     pair_tile: int = PAIR_TILE,
     max_pass_budget: int = MAX_PASS_BUDGET,
     device_outputs: bool = False,
     group: int = PLAN_GROUP,
+    merge_runs: bool | None = None,
+    input_area_weights: bool | None = None,
 ):
     """Slab streaming over a device-resident (N, 24) triangle table in voxel
     space.  `aabb_host` is the host (vmin, vmax) pair of per-triangle voxel
@@ -329,8 +403,19 @@ def stream_slabs(
     the pool holds more than one pixel and K1 otherwise: a pool of one 1x1
     texture takes K1, so its textured triangles get their flat color.
 
+    `do_down` halves each axis in the merge (the grid is sampled at stride,
+    the output is stride // 2).  `merge_runs` (default: O2V_MERGE_RUNS=1)
+    takes the K6 merge route and `input_area_weights` (default:
+    O2V_WEIGHT_MODE=input_area) weighs each occupied voxel by its whole
+    triangle's area; both defaults are read once per call.
+
     Yields (xyz, argb) numpy arrays per slab, or with device_outputs=True
     (xyz, argb, count) with xyz/argb still on the device, count-padded."""
+    if merge_runs is None:
+        merge_runs = os.environ.get("O2V_MERGE_RUNS") == "1"
+    if input_area_weights is None:
+        input_area_weights = os.environ.get("O2V_WEIGHT_MODE") == "input_area"
+    merge_runs = bool(merge_runs) and not do_down
     vmin_h, vmax_h = aabb_host
     n_sub = vmin_h.shape[0]
     max_budget = min(pair_tile, max_pass_budget)
@@ -372,7 +457,8 @@ def stream_slabs(
                 slab_segs, max_budget
             ):
                 args = (r0, n_rows, local_base, z_lo, z_hi, stride)
-                kw = dict(expand=expand, budget=budget, wide_local=wide)
+                kw = dict(expand=expand, budget=budget, wide_local=wide,
+                          ref_weights=bool(input_area_weights))
                 outs.append(_textured_pass(table, pool, *args, **kw) if textured
                             else fused_pass(table, *args, **kw))
                 wave_rows += budget
@@ -389,21 +475,13 @@ def stream_slabs(
                     _dbg.check_count(c, key.shape[0], "pass")
                 if c:
                     live.append((key[:c], (w[:c], r[:c], g[:c], b[:c])))
+            n_passes = len(outs)
             del outs
-            if not live:
-                continue
-            while sum(x[0].shape[0] for x in live) > MERGE_CAP:
-                before = sum(x[0].shape[0] for x in live)
-                groups = plan_fold_chunks([x[0].shape[0] for x in live], MERGE_CAP)
-                if len(groups) == 1:
-                    break
-                live = [_fold_outputs([live[j] for j in g], is_blend) for g in groups]
-                if sum(x[0].shape[0] for x in live) >= before:
-                    break  # folding cannot shrink further
-            keys = torch.cat([x[0] for x in live])
-            chans = tuple(torch.cat([x[1][j] for x in live]) for j in range(4))
+            if live:
+                merged.append((z_lo, z_hi, _merge_slab(
+                    live, n_passes, z_lo, is_blend=is_blend, stride=stride,
+                    do_down=do_down, merge_runs=merge_runs)))
             del live
-            merged.append((z_lo, z_hi, _merge_pass(keys, chans, z_lo, is_blend, stride)))
 
         mcounts = (
             torch.cat([m[2][2] for m in merged]).tolist() if merged else []
@@ -411,10 +489,12 @@ def stream_slabs(
         for (z_lo, z_hi, (xyz, argb, _)), count in zip(merged, mcounts):
             _log.spam(f"Voxelized slab z[{z_lo},{z_hi}) -> {count}")
             if _dbg.DEBUG:
+                half = 2 if do_down else 1
                 _dbg.check_count(count, xyz.shape[0], "merge")
                 _dbg.check_slab_output(
                     _pull(xyz, count), _pull(argb, count), count,
-                    res_xy=stride, z_extent=z_extent, z_lo=z_lo, z_hi=z_hi,
+                    res_xy=stride // half, z_extent=z_extent // half,
+                    z_lo=z_lo // half, z_hi=z_hi // half,
                 )
             if count:
                 if device_outputs:

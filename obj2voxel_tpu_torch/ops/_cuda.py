@@ -40,7 +40,7 @@ COMPACT_TILE = 256
 #: Launch counts of the kernels.  Each wrapper adds one where it launches
 #: its kernel and nowhere else.
 LAUNCHES = {"fused_pass": 0, "segment_combine": 0, "pack_exact": 0,
-            "clip_pairs": 0, "pack_channels": 0}
+            "clip_pairs": 0, "pack_channels": 0, "merge_runs": 0}
 
 #: Seconds the last build took (None: loaded from an existing build).
 BUILD_SECONDS = None
@@ -50,8 +50,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # keys_out, w, r, g, b (out), count_out, slot scratch x5, tile counts,
     # tile offsets, table, n_table_rows, r0, n_rows, local_base, z_lo, z_hi,
-    # stride, log2_expand, budget, wide_local, stream
-    "o2v_fused_pass": [_P] * 6 + [_P] * 5 + [_P, _P] + [_P] + [_I] * 10 + [_P],
+    # stride, log2_expand, budget, wide_local, ref_weights, stream
+    "o2v_fused_pass": [_P] * 6 + [_P] * 5 + [_P, _P] + [_P] + [_I] * 11 + [_P],
     # keys, w, r, g, b, out x5, tile key_first, key_last, agg (4 x tiles),
     # carry (4 x tiles), n, is_blend, stream
     "o2v_segment_combine": [_P] * 5 + [_P] * 5 + [_P] * 4 + [_I, _I, _P],
@@ -63,6 +63,9 @@ _SIGNATURES = {
     # keys, w, r, g, b, out x5, count_out, tile counts, padded tile counts,
     # tile offsets, n, stream
     "o2v_pack_channels": [_P] * 5 + [_P] * 5 + [_P] * 4 + [_I, _P],
+    # keys, w, r, g, b, out x5, run offsets (host, n_runs + 1), n_runs,
+    # level, n, stream
+    "o2v_merge_runs": [_P] * 5 + [_P] * 5 + [_P] + [_I] * 3 + [_P],
 }
 
 _LIB = None

@@ -20,8 +20,8 @@ from ._cuda import INVALID_KEY
 from .combine_pallas import segment_combine_ref
 from .pack_pallas import pack_exact_ref
 
-__all__ = ["INVALID_KEY", "combine_sorted", "finalize_colors", "pack_argb",
-           "premultiply", "sort_channels"]
+__all__ = ["INVALID_KEY", "combine_sorted", "downscale_keys", "finalize_colors",
+           "pack_argb", "premultiply", "sort_channels"]
 
 
 def premultiply(weight, rgb):
@@ -43,6 +43,20 @@ def combine_sorted(sorted_keys, chans, is_blend):
     (INVALID_KEY, 0)."""
     tk, *tv = segment_combine_ref(sorted_keys, *chans, is_blend)
     return pack_exact_ref(tk, tuple(tv))
+
+
+def downscale_keys(keys, stride):
+    """2x2x2 downscale of slab-local keys x + stride*y + stride^2*z_local:
+    each axis coordinate is halved and the key re-packed with stride // 2
+    (slab z offsets are even, so z_local // 2 stays slab-local); INVALID
+    keys pass through (obj2voxel_tpu/ops/combine.py:221-234)."""
+    s2 = stride // 2
+    k = keys.to(torch.int64)
+    x = k % stride
+    y = (k // stride) % stride
+    zl = k // (stride * stride)
+    down = ((zl // 2) * (s2 * s2) + (y // 2) * s2 + x // 2).to(torch.int32)
+    return torch.where(keys == INVALID_KEY, keys, down)
 
 
 def _exact_div(num, den):

@@ -1,0 +1,126 @@
+"""K6: stable merge of key-sorted runs (csrc/merge_runs.cu).
+
+The counterpart of obj2voxel_tpu/ops/merge_pallas.py `merge_runs_pallas`.
+The input is the concatenation of S <= 32 runs, each sorted by key: keys
+(P,) int32 and a 4-tuple of (P,) float32 channels, with the S + 1 run
+boundaries as host ints.  The output is the input in the order of
+`torch.sort(keys, stable=True)`: equal keys keep run order, then position
+order.  ceil(log2 S) levels each merge neighbouring groups of runs.
+
+The runs lie densely, one after the other.  The TPU version's block-aligned
+layout (`build_aoff`, INVALID alignment padding, `_WIN_PAD` slack rows and
+the window DMA) exists only for its VMEM windows and is not carried over.
+
+`merge_runs` takes the plain version for CPU tensors and launches the CUDA
+kernel, once per level, for CUDA tensors; `merge_runs_ref` is the plain
+version, built from `torch.searchsorted` without a sort.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
+
+#: Most runs one merge takes (csrc/merge_runs.cu O2V_MAX_RUNS).
+MAX_RUNS = 32
+
+
+def plan_runs(counts):
+    """Dense layout of runs of `counts` rows: (offsets, levels) with
+    offsets the S + 1 run boundaries and levels = ceil(log2 S)."""
+    offsets = [0]
+    for c in counts:
+        offsets.append(offsets[-1] + int(c))
+    return offsets, _levels(len(counts))
+
+
+def _levels(n_runs):
+    """ceil(log2 n_runs): the merge levels of n_runs runs."""
+    return max(n_runs - 1, 0).bit_length()
+
+
+def _groups(offsets, level):
+    """(start, middle, end) of every pair of run groups merged at `level`."""
+    s = len(offsets) - 1
+    span = 2 << level
+    return [(offsets[g], offsets[min(g + span // 2, s)], offsets[min(g + span, s)])
+            for g in range(0, s, span)]
+
+
+def merge_runs_ref(keys, chans, offsets):
+    """Plain version, level by level: a row of a left group moves by the
+    number of right keys below its key, a row of a right group by the number
+    of left keys at or below it (ties go left)."""
+    offsets = [int(o) for o in offsets]
+    chans = tuple(chans)
+    for level in range(_levels(len(offsets) - 1)):
+        dst = torch.arange(keys.numel(), dtype=torch.int64, device=keys.device)
+        for a, m, e in _groups(offsets, level):
+            if a == m or m == e:
+                continue
+            left, right = keys[a:m], keys[m:e]
+            dst[a:m] += torch.searchsorted(right, left, side="left")
+            dst[m:e] += a - m + torch.searchsorted(left, right, side="right")
+        out = torch.empty_like(keys)
+        out[dst] = keys
+        outs = []
+        for c in chans:
+            o = torch.empty_like(c)
+            o[dst] = c
+            outs.append(o)
+        keys, chans = out, tuple(outs)
+    return keys, chans
+
+
+def _check(keys, chans, offsets):
+    if keys.dtype != torch.int32 or keys.dim() != 1:
+        raise ValueError("merge_runs: keys must be a 1-D int32 tensor")
+    if len(chans) != 4:
+        raise ValueError("merge_runs: expected 4 value channels")
+    for c in chans:
+        if c.dtype != torch.float32 or c.shape != keys.shape:
+            raise ValueError("merge_runs: channels must be float32 like keys")
+    if not 2 <= len(offsets) <= MAX_RUNS + 1:
+        raise ValueError(f"merge_runs: between 1 and {MAX_RUNS} runs, got "
+                         f"{len(offsets) - 1}")
+    if offsets[0] != 0 or offsets[-1] != keys.numel() or any(
+            b < a for a, b in zip(offsets, offsets[1:])):
+        raise ValueError("merge_runs: offsets must rise from 0 to the length")
+    if keys.numel() >= 1 << 31:
+        raise ValueError("merge_runs: stream longer than int32 indexing")
+
+
+def merge_runs(keys, chans, offsets):
+    """Stable merge of the key-sorted runs [offsets[i], offsets[i+1]).
+
+    Returns (keys', chans' 4-tuple): the stable sort of the input by key.
+    One run is returned as it is."""
+    offsets = [int(o) for o in offsets]
+    chans = tuple(chans)
+    _check(keys, chans, offsets)
+    if keys.device.type == "cpu":
+        return merge_runs_ref(keys, chans, offsets)
+    dev = _cuda.require_cuda("merge_runs", keys, *chans)
+    levels = _levels(len(offsets) - 1)
+    if levels == 0 or keys.numel() == 0:
+        return keys, chans
+    n_runs = len(offsets) - 1
+    host_offsets = (ctypes.c_int * len(offsets))(*offsets)
+    bufs = [(torch.empty_like(keys), tuple(torch.empty_like(c) for c in chans))
+            for _ in range(min(levels, 2))]
+    src = (keys, chans)
+    for level in range(levels):
+        out = bufs[level % 2]
+        err = _cuda.lib().o2v_merge_runs(
+            src[0].data_ptr(), *(c.data_ptr() for c in src[1]),
+            out[0].data_ptr(), *(c.data_ptr() for c in out[1]),
+            ctypes.cast(host_offsets, ctypes.c_void_p), n_runs, level,
+            keys.numel(), _cuda.stream_ptr(dev),
+        )
+        _cuda.check(err, "merge_runs")
+        _cuda.LAUNCHES["merge_runs"] += 1
+        src = out
+    return src

@@ -16,6 +16,10 @@ are (INVALID, 0).
 rank with exact integer div/mod (obj2voxel_tpu/engine.py:466-470); all
 others use the float-reciprocal divmod of the TPU kernel.
 
+With `ref_weights` (the TPU kernel's variant, the engine's input-area
+weights) every occupied voxel weighs the area of its whole table triangle,
+`triangle_area`, instead of the clipped piece's.
+
 `fused_pass` takes the plain version for CPU tensors and launches the CUDA
 kernel for CUDA tensors; `fused_pass_ref` is the plain version, built from
 the XLA branch of obj2voxel_tpu/engine.py `_bucket_pass` and ops/clip.py.
@@ -26,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .clip import clip_channels
+from .clip import _sqrt_rn, clip_channels
 
 
 def _divmod_f(lf, sf):
@@ -36,6 +40,18 @@ def _divmod_f(lf, sf):
     r = lf - q * sf
     q = torch.where(r < 0, q - 1.0, torch.where(r >= sf, q + 1.0, q))
     return lf - q * sf, q
+
+
+def triangle_area(t):
+    """0.5 * |e1 x e2| of channel-major triangles t (>= 9, N) (rows 0..8 the
+    vertex coordinates), in obj2voxel_tpu/ops/pass_fused.py:191-197's
+    order: the weight of an occupied voxel under input-area weights."""
+    e1x, e1y, e1z = t[3] - t[0], t[4] - t[1], t[5] - t[2]
+    e2x, e2y, e2z = t[6] - t[0], t[7] - t[1], t[8] - t[2]
+    cx = e1y * e2z - e1z * e2y
+    cy = e1z * e2x - e1x * e2z
+    cz = e1x * e2y - e1y * e2x
+    return 0.5 * _sqrt_rn(cx * cx + cy * cy + cz * cz)
 
 
 def slot_voxels(rows, row, local, z_lo, z_hi, stride, wide_local):
@@ -74,7 +90,7 @@ def slot_voxels(rows, row, local, z_lo, z_hi, stride, wide_local):
 
 
 def fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride, *,
-                   expand, budget, wide_local):
+                   expand, budget, wide_local, ref_weights=False):
     """Plain version of the pass; same contract as `fused_pass`."""
     dev = table.device
     rows = table[r0 : r0 + n_rows]
@@ -89,6 +105,8 @@ def fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride, *,
 
     vox = torch.stack([vx, vy, vz]).to(torch.float32)
     w = clip_channels(rows[row, 0:16].T, vox)[0][0]
+    if ref_weights:
+        w = torch.where(w > 0, triangle_area(rows[:, 0:9].T)[row], 0.0)
     live = w > 0
     n = int(live.sum())
     w = w[live]
@@ -129,8 +147,9 @@ def _check(table, r0, n_rows, local_base, z_lo, z_hi, stride, expand, budget,
 
 
 def fused_pass(table, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
-               budget, wide_local=False):
-    """Run one pass over table rows [r0, r0 + n_rows).
+               budget, wide_local=False, ref_weights=False):
+    """Run one pass over table rows [r0, r0 + n_rows); `ref_weights` weighs
+    each occupied voxel by its whole triangle's area.
 
     Returns (key (budget,) int32, w, wr, wg, wb (budget,) float32, count (1,)
     int32): the live pairs in slot order, then (INVALID, 0)."""
@@ -141,7 +160,7 @@ def fused_pass(table, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
     if table.device.type == "cpu":
         return fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride,
                               expand=expand, budget=budget,
-                              wide_local=wide_local)
+                              wide_local=wide_local, ref_weights=ref_weights)
     dev = _cuda.require_cuda("fused_pass", table)
     key = torch.empty(budget, dtype=torch.int32, device=dev)
     chans = [torch.empty(budget, dtype=torch.float32, device=dev) for _ in range(4)]
@@ -157,7 +176,7 @@ def fused_pass(table, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
         tile_counts.data_ptr(), tile_offsets.data_ptr(),
         table.data_ptr(), table.shape[0], r0, n_rows, local_base, z_lo, z_hi,
         stride, expand.bit_length() - 1, budget, int(bool(wide_local)),
-        _cuda.stream_ptr(dev),
+        int(bool(ref_weights)), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "fused_pass")
     _cuda.LAUNCHES["fused_pass"] += 1

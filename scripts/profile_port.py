@@ -1,7 +1,8 @@
 """Where the port's time goes on one CUDA card: a torch.profiler trace of one
 warm `stream_slabs` run of chip_smoke.py's 2M-triangle sphere at 1024^3,
-untextured (BLEND, K1 passes) and textured (MAX, K4 passes with one 4096^2
-REPEAT texture), outputs kept on the device.
+untextured (BLEND, K1 passes), textured (MAX, K4 passes with one 4096^2
+REPEAT texture), untextured through the merge-runs route (BLEND, K6) and
+supersampled from 2048^3 (MAX), outputs kept on the device.
 
     python3 scripts/profile_port.py [--top 15]
 
@@ -39,12 +40,12 @@ def busy_ms(events):
     return total / 1e3
 
 
-def profile(name, table, pool, aabb, is_blend, top):
+def profile(name, table, pool, aabb, is_blend, top, **kw):
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     def run():
         return cs.drive_sphere(table, pool, aabb, is_blend,
-                               lambda xyz, argb: argb.view(torch.int32).sum())
+                               lambda xyz, argb: argb.view(torch.int32).sum(), **kw)
 
     run()  # warm
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -71,8 +72,12 @@ def main():
 
     print(f"[gpu] {cs.gpu_info()}", flush=True)
     table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, cs.SPHERE_RES)
-    profile("untextured BLEND", pt.table_from_numpy(table_np, "cuda"), None,
-            aabb, True, top)
+    table = pt.table_from_numpy(table_np, "cuda")
+    profile("untextured BLEND", table, None, aabb, True, top)
+    profile("merge-runs BLEND", table, None, aabb, True, top, merge_runs=True)
+    table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, 2 * cs.SPHERE_RES)
+    profile("supersampled MAX", pt.table_from_numpy(table_np, "cuda"), None, aabb,
+            False, top, stride=2 * cs.SPHERE_RES, do_down=True)
     table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, cs.SPHERE_RES, textured=True)
     pool, _ = cs.palette_pool()
     profile("textured MAX", pt.table_from_numpy(table_np, "cuda"),

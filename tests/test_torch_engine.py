@@ -200,12 +200,6 @@ def test_device_outputs_match_host_outputs():
     assert dev == host
 
 
-def test_unported_options_raise(cube_tris_m):
-    with pytest.raises(NotImplementedError):
-        list(pt.voxelize_soup(pt.TriangleSoup.from_vertices(cube_tris_m),
-                              resolution=8, device="cpu", supersampling=2))
-
-
 def test_textured_pool_voxelizes(cube_tris_m):
     # a non-empty pool used to raise; now its triangles sample their texture
     pool = pt.TexturePool()
@@ -224,6 +218,7 @@ def test_package_imports_no_jax():
     code = (
         "import sys; import obj2voxel_tpu_torch, obj2voxel_tpu_torch.engine; "
         "import obj2voxel_tpu_torch.api, obj2voxel_tpu_torch.cli; "
+        "import obj2voxel_tpu_torch.ops.merge_pallas; "
         "from obj2voxel_tpu_torch.io import debug_stl, native, obj_loader, "
         "png_io, stl_loader, writers; "
         "from obj2voxel_tpu_torch.utils import meshes; "
