@@ -115,6 +115,14 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 
+def in_turns(kernel, library, reps=10):
+    """CUDA-event ms of a kernel and of the library call for the same
+    function, timed in turns (kernel, library, library, kernel); returns the
+    two means and the four times in that order."""
+    times = [cuda_ms(fn, reps) for fn in (kernel, library, library, kernel)]
+    return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2, times
+
+
 def bound(stats, name, n_bytes, n_ops):
     """Record the least time the card could take for the work."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -356,7 +364,8 @@ def phase_k2(stats):
 
 def pack_phase(stats, name, kernel, plain, label):
     """K3 and K5: the kernel against its plain version at STREAM rows with
-    live fractions 0, 1/4 and 1, timed at 1/4 beside boolean-mask indexing."""
+    live fractions 0, 1/4 and 1, timed at 1/4 in turns with boolean-mask
+    indexing."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(3)
     details = []
@@ -374,11 +383,17 @@ def pack_phase(stats, name, kernel, plain, label):
         details.append(f"{frac}:{int(gc.item())}")
         if frac == 0.25:
             rows = torch.stack([keys, *(v.view(torch.int32) for v in vals)])
-            stats[name].update(
-                ms=cuda_ms(lambda: kernel(keys, vals)),
-                plain_ms=cuda_ms(lambda: plain(keys, vals)),
-                library_ms=cuda_ms(lambda: rows[:, rows[0] != INV]),
-            )
+
+            def library():
+                return rows[:, rows[0] != INV]
+
+            ms, lib_ms, times = in_turns(lambda: kernel(keys, vals), library)
+            details.append(f"in turns (kernel, library, library, kernel) "
+                           f"{[round(t, 4) for t in times]} ms: kernel {ms:.4f} "
+                           f"ms, rows[:, mask] {lib_ms:.4f} ms, kernel/library "
+                           f"{ms / lib_ms:.3f}")
+            stats[name].update(ms=ms, library_ms=lib_ms,
+                               plain_ms=cuda_ms(lambda: plain(keys, vals)))
             # every row read, the live rows (K5: up to the padded count)
             # written, and the count
             bound(stats, name, STREAM * 20 + int(gc.item()) * 20 + 4, 0)
@@ -393,11 +408,53 @@ def phase_k3(stats):
                "4 K3 pack_exact vs plain")
 
 
+def k5_streams(rng):
+    """The cases a chained scan gets wrong, as (name, keys): blocks whose
+    live count is exactly a multiple of 128, a block with one live row,
+    empty blocks, all live rows in the last block, one block alone, and
+    2^24 rows (2048 blocks, many waves of look-back)."""
+    from obj2voxel_tpu_torch.ops.pack_pallas import PACK_BLOCK
+
+    def quarter(n):
+        keys = rng.integers(0, 1 << 30, n).astype(np.int32)
+        keys[rng.random(n) >= 0.25] = INV
+        return keys
+
+    mixed = quarter(STREAM)
+    for blk, live in ((1, 384), (2, 1), (3, 0), (4, PACK_BLOCK), (5, 128)):
+        rows = mixed[blk * PACK_BLOCK:(blk + 1) * PACK_BLOCK]
+        rows[:] = INV
+        rows[rng.choice(PACK_BLOCK, live, replace=False)] = rng.integers(0, 1 << 30, live)
+    last = np.full(STREAM, INV, np.int32)
+    last[-PACK_BLOCK:] = quarter(PACK_BLOCK)
+    return {"128k/one/empty blocks": mixed, "last block only": last,
+            "one block": quarter(PACK_BLOCK), "2^24 rows": quarter(1 << 24)}
+
+
 def phase_k5(stats):
+    """K5 against its plain version on the generic streams (timed as K3 is)
+    and on the chained scan's own cases, each called twice on one input."""
     from obj2voxel_tpu_torch.ops.pack_pallas import pack_channels, pack_channels_ref
 
     pack_phase(stats, "pack_channels", pack_channels, pack_channels_ref,
                "10 K5 pack_channels vs plain")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(10)
+    details = []
+    for name, keys_np in k5_streams(rng).items():
+        keys = torch.from_numpy(keys_np).cuda()
+        vals = tuple(torch.from_numpy(rng.random(keys.numel(), dtype=np.float32)).cuda()
+                     for _ in range(4))
+        want = pack_channels_ref(keys, vals)
+        for call in ("first", "second"):
+            # a second call on the same input must not read the first's flags
+            gk, gv, gc = pack_channels(keys, vals)
+            if not (torch.equal(gc, want[2]) and torch.equal(gk, want[0])
+                    and all(torch.equal(a, b) for a, b in zip(gv, want[1]))):
+                fail(f"K5 {name}, {call} call: output differs from the plain version")
+        details.append(f"{name}: {keys.numel()} rows, count {int(gc.item())}")
+    phase("10 K5 pack_channels chained-scan cases, each called twice", t0,
+          "; ".join(details))
 
 
 def sphere_slab_runs(table, aabb):
@@ -430,9 +487,17 @@ def sphere_slab_runs(table, aabb):
     return keys, chans, plan_runs([r[0].shape[0] for r in runs])[0]
 
 
-def random_runs(rng, counts, key_hi):
-    """Key-sorted runs of `counts` rows, keys below key_hi, on the card."""
-    keys = np.concatenate([np.sort(rng.integers(0, key_hi, c)) for c in counts])
+def random_runs(rng, counts, key_hi, key_lo=0, edges=()):
+    """Key-sorted runs of `counts` rows, keys in [key_lo, key_hi) and, where
+    a run holds 8 rows or more, each of `edges` once, on the card."""
+
+    def run(c):
+        keys = rng.integers(key_lo, key_hi, c)
+        if c >= 8:
+            keys[:len(edges)] = edges
+        return np.sort(keys)
+
+    keys = np.concatenate([run(c) for c in counts])
     chans = tuple(torch.from_numpy(rng.random(keys.size, dtype=np.float32)).cuda()
                   for _ in range(4))
     offsets = np.concatenate([[0], np.cumsum(counts)]).tolist()
@@ -440,7 +505,9 @@ def random_runs(rng, counts, key_hi):
 
 
 def phase_k6(stats):
-    from obj2voxel_tpu_torch.ops.merge_pallas import merge_runs, merge_runs_ref
+    from obj2voxel_tpu_torch.ops.merge_pallas import (
+        MERGE_TILE, merge_runs, merge_runs_ref,
+    )
 
     t0 = time.perf_counter()
 
@@ -467,16 +534,41 @@ def phase_k6(stats):
         # few distinct keys: stability is the whole test
         details.append(check(*random_runs(rng, counts, 64), f"S={s} dup"))
         details.append(check(*random_runs(rng, counts, 1 << 30), f"S={s}"))
+    # the cases a tiled merge path gets wrong
+    tile = MERGE_TILE
+    most_empty = np.zeros(32, np.int64)
+    most_empty[[3, 17, 30, 31]] = (300_001, 1, 2 * tile, 250_000)
+    cases = (
+        # every tie crosses tile boundaries
+        ("S=32 one key", rng.integers(1, 200_000, 32), dict(key_lo=77, key_hi=78)),
+        ("S=32 runs of one row", np.ones(32, np.int64), dict(key_hi=8)),
+        ("S=17 one-row runs among long ones",
+         np.where(np.arange(17) % 2, 1, 150_001), dict(key_hi=1000)),
+        ("run lengths off the tile",
+         np.array([tile - 1, tile + 1, 7 * tile, 5 * tile - 1, 1, 3 * tile + 2]),
+         dict(key_hi=300)),
+        ("S=32 most runs empty", most_empty, dict(key_hi=5000)),
+        ("one run longer than the rest", np.array([3_000_000, 50_000, 200_000, 7, 1000]),
+         dict(key_hi=1 << 30)),
+        ("whole int32 range, INVALID included", rng.integers(0, 300_000, 9),
+         dict(key_lo=-(1 << 31), key_hi=1 << 31, edges=(-(1 << 31), INV, INV))),
+    )
+    for what, counts, kw in cases:
+        details.append(check(*random_runs(rng, counts, **kw), what))
 
     def library():
         sk, idx = torch.sort(keys, stable=True)
         return sk, tuple(c[idx] for c in chans)
 
+    ms, lib_ms, turns = in_turns(lambda: merge_runs(keys, chans, offsets), library)
     stats["merge_runs"].update(
-        ms=cuda_ms(lambda: merge_runs(keys, chans, offsets)),
+        ms=ms, library_ms=lib_ms, max_abs_err=0.0,
         plain_ms=cuda_ms(lambda: merge_runs_ref(keys, chans, offsets)),
-        library_ms=cuda_ms(library), max_abs_err=0.0,
     )
+    details.append(f"sphere slab in turns (K6, library, library, K6) "
+                   f"{[round(t, 4) for t in turns]} ms: K6 {ms:.4f} ms, "
+                   f"torch.sort(stable) + 4 gathers {lib_ms:.4f} ms, K6/library "
+                   f"{ms / lib_ms:.3f}")
     # each row (key + 4 channels) read once and written once
     bound(stats, "merge_runs", keys.numel() * 40, 0)
     phase("13 K6 merge_runs vs plain", t0, "; ".join(details))
@@ -837,10 +929,15 @@ def phase_merge_runs(info):
                                                     merge_runs=flag),
                                want, "merge-runs A/B", n=1)
     med = {flag: sorted(t)[1] for flag, t in ab.items()}
+    ratio = med[True] / med[False]
+    verdict = (f"the merge-runs route still loses, {100 * (ratio - 1):.1f}% slower"
+               if ratio > 1 else
+               f"the merge-runs route wins, {100 * (1 - ratio):.1f}% faster")
     phase("14 real size merge-runs (2M-tri sphere @ 1024^3 BLEND, K6)", t0,
           f"{detail}; {n_slabs} slabs equal to the default route's; in turns "
           f"default {med[False]:.4f} s (runs {[round(x, 4) for x in ab[False]]}), "
-          f"merge-runs {med[True]:.4f} s (runs {[round(x, 4) for x in ab[True]]})")
+          f"merge-runs {med[True]:.4f} s (runs {[round(x, 4) for x in ab[True]]}): "
+          f"{verdict} (the default is unchanged)")
     return launches
 
 

@@ -60,12 +60,12 @@ _SIGNATURES = {
     "o2v_pack_exact": [_P] * 5 + [_P] * 5 + [_P, _P, _P] + [_I, _P],
     # tri (16, n), vox (4, n), out (4, n), n, stream
     "o2v_clip_pairs": [_P, _P, _P, _I, _P],
-    # keys, w, r, g, b, out x5, count_out, tile counts, padded tile counts,
-    # tile offsets, n, stream
-    "o2v_pack_channels": [_P] * 5 + [_P] * 5 + [_P] * 4 + [_I, _P],
-    # keys, w, r, g, b, out x5, run offsets (host, n_runs + 1), n_runs,
-    # level, n, stream
-    "o2v_merge_runs": [_P] * 5 + [_P] * 5 + [_P] + [_I] * 3 + [_P],
+    # keys, w, r, g, b, out x5, count_out, status words + ticket (8-byte
+    # aligned; the launcher zeroes them), n, stream
+    "o2v_pack_channels": [_P] * 5 + [_P] * 5 + [_P, _P] + [_I, _P],
+    # keys, w, r, g, b, out x5, composite scratch, level plans (host),
+    # n_levels, n, stream
+    "o2v_merge_runs": [_P] * 5 + [_P] * 5 + [_P, _P] + [_I, _I] + [_P],
 }
 
 _LIB = None

@@ -13,7 +13,11 @@ the window DMA) exists only for its VMEM windows and is not carried over.
 
 `merge_runs` takes the plain version for CPU tensors and launches the CUDA
 kernel, once per level, for CUDA tensors; `merge_runs_ref` is the plain
-version, built from `torch.searchsorted` without a sort.
+version, built from `torch.searchsorted` without a sort.  The levels before
+the last pass (key, source row) composites through int64 scratch; each level
+launch covers its group pairs in tiles of MERGE_TILE output rows
+(`plan_levels`).  The outputs are the five rows of one (5, P) int32 buffer,
+the channels viewed as float32: one allocation, not five.
 """
 
 from __future__ import annotations
@@ -26,6 +30,10 @@ from . import _cuda
 
 #: Most runs one merge takes (csrc/merge_runs.cu O2V_MAX_RUNS).
 MAX_RUNS = 32
+
+#: Output rows per block of a level launch (csrc/merge_runs.cu MERGE_TILE:
+#: 128 threads x 15 rows).
+MERGE_TILE = 128 * 15
 
 
 def plan_runs(counts):
@@ -48,6 +56,21 @@ def _groups(offsets, level):
     span = 2 << level
     return [(offsets[g], offsets[min(g + span // 2, s)], offsets[min(g + span, s)])
             for g in range(0, s, span)]
+
+
+def plan_levels(offsets):
+    """The launch plan of every merge level: for each pair of run groups the
+    level merges, (left start, right start, end, first tile), then the
+    level's tile count, flat as the kernel takes it (csrc/merge_runs.cu
+    `o2v_merge_runs`).  A pair without rows has no tile."""
+    plans = []
+    for level in range(_levels(len(offsets) - 1)):
+        flat, tiles = [], 0
+        for a, m, e in _groups(offsets, level):
+            flat += [a, m, e, tiles]
+            tiles += -(-(e - a) // MERGE_TILE)
+        plans.append(flat + [tiles])
+    return plans
 
 
 def merge_runs_ref(keys, chans, offsets):
@@ -104,23 +127,21 @@ def merge_runs(keys, chans, offsets):
     if keys.device.type == "cpu":
         return merge_runs_ref(keys, chans, offsets)
     dev = _cuda.require_cuda("merge_runs", keys, *chans)
-    levels = _levels(len(offsets) - 1)
-    if levels == 0 or keys.numel() == 0:
+    plans = plan_levels(offsets)
+    n = keys.numel()
+    if not plans or n == 0:
         return keys, chans
-    n_runs = len(offsets) - 1
-    host_offsets = (ctypes.c_int * len(offsets))(*offsets)
-    bufs = [(torch.empty_like(keys), tuple(torch.empty_like(c) for c in chans))
-            for _ in range(min(levels, 2))]
-    src = (keys, chans)
-    for level in range(levels):
-        out = bufs[level % 2]
-        err = _cuda.lib().o2v_merge_runs(
-            src[0].data_ptr(), *(c.data_ptr() for c in src[1]),
-            out[0].data_ptr(), *(c.data_ptr() for c in out[1]),
-            ctypes.cast(host_offsets, ctypes.c_void_p), n_runs, level,
-            keys.numel(), _cuda.stream_ptr(dev),
-        )
-        _cuda.check(err, "merge_runs")
-        _cuda.LAUNCHES["merge_runs"] += 1
-        src = out
-    return src
+    out = torch.empty((5, n), dtype=torch.int32, device=dev)
+    # (key, source row) composites between levels, in two buffers at most
+    scratch = torch.empty(min(len(plans) - 1, 2) * n, dtype=torch.int64, device=dev)
+    flat = [x for plan in plans for x in (len(plan) // 4, *plan)]
+    p = out.data_ptr()
+    err = _cuda.lib().o2v_merge_runs(
+        keys.data_ptr(), *(c.data_ptr() for c in chans),
+        *(p + 4 * n * i for i in range(5)), scratch.data_ptr(),
+        ctypes.cast((ctypes.c_int * len(flat))(*flat), ctypes.c_void_p),
+        len(plans), n, _cuda.stream_ptr(dev),
+    )
+    _cuda.check(err, "merge_runs")
+    _cuda.LAUNCHES["merge_runs"] += len(plans)  # one launch a level
+    return out[0], tuple(out[i].view(torch.float32) for i in range(1, 5))

@@ -120,21 +120,21 @@ def pack_channels(keys, vals):
     dev = _cuda.require_cuda("pack_channels", keys, *vals)
     if n >= 1 << 31:
         raise ValueError("pack_channels: stream longer than int32 indexing")
-    out_k = torch.empty_like(keys)
-    outs = tuple(torch.empty_like(v) for v in vals)
-    count = torch.zeros(1, dtype=torch.int32, device=dev)
     if n == 0:
-        return out_k, outs, count
-    n_tiles = n // _cuda.COMPACT_TILE
-    tile_counts, padded, tile_offsets = (
-        torch.empty(n_tiles, dtype=torch.int32, device=dev) for _ in range(3)
-    )
+        return keys.clone(), tuple(v.clone() for v in vals), torch.zeros(
+            1, dtype=torch.int32, device=dev)
+    # one buffer: the five output rows, the count and a pad, then the
+    # look-back's status word of each block and its ticket, which the
+    # launcher zeroes; the pointers are offsets into it
+    n_blocks = n // PACK_BLOCK
+    buf = torch.empty(5 * n + 2 * n_blocks + 4, dtype=torch.int32, device=dev)
+    p = buf.data_ptr()
     err = _cuda.lib().o2v_pack_channels(
         keys.data_ptr(), *(v.data_ptr() for v in vals),
-        out_k.data_ptr(), *(o.data_ptr() for o in outs),
-        count.data_ptr(), tile_counts.data_ptr(), padded.data_ptr(),
-        tile_offsets.data_ptr(), n, _cuda.stream_ptr(dev),
+        *(p + 4 * n * i for i in range(5)), p + 20 * n, p + 20 * n + 8, n,
+        _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pack_channels")
     _cuda.LAUNCHES["pack_channels"] += 1
-    return out_k, outs, count
+    return (buf[:n], tuple(buf[i * n:(i + 1) * n].view(torch.float32) for i in range(1, 5)),
+            buf[5 * n:5 * n + 1])

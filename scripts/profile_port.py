@@ -2,9 +2,11 @@
 warm `stream_slabs` run of chip_smoke.py's 2M-triangle sphere at 1024^3,
 untextured (BLEND, K1 passes), textured (MAX, K4 passes with one 4096^2
 REPEAT texture), untextured through the merge-runs route (BLEND, K6) and
-supersampled from 2048^3 (MAX), outputs kept on the device.
+supersampled from 2048^3 (MAX), outputs kept on the device; and of ten
+calls of K5 and of K6 alone at chip_smoke.py's timing shapes (phases 10 and
+13).
 
-    python3 scripts/profile_port.py [--top 15]
+    python3 scripts/profile_port.py [--top 15] [--paths untextured,merge-runs]
 
 Prints, per path, the wall time of the profiled run, the device's busy time
 (the union of its kernel intervals) and idle share, and the kernels with the
@@ -18,6 +20,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -40,31 +43,76 @@ def busy_ms(events):
     return total / 1e3
 
 
-def profile(name, table, pool, aabb, is_blend, top, **kw):
+def traced(run):
+    """One warm run of `run` under torch.profiler: (its result, the profile,
+    the wall ms, the device busy ms)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-
-    def run():
-        return cs.drive_sphere(table, pool, aabb, is_blend,
-                               lambda xyz, argb: argb.view(torch.int32).sum(), **kw)
 
     run()  # warm
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        voxels, _ = run()
+        out = run()
+        torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    busy = busy_ms(prof.events())
-    print(f"[{name}] {voxels} voxels; profiled wall {wall:.2f} ms; device busy "
-          f"{busy:.2f} ms; idle {100 * (1 - busy / wall):.1f}%", flush=True)
+    return out, prof, wall, busy_ms(prof.events())
+
+
+def by_kernel(prof, top):
     rows = [a for a in prof.key_averages() if a.device_time_total > 0]
     rows.sort(key=lambda a: a.device_time_total, reverse=True)
     for a in rows[:top]:
         print(f"  {a.device_time_total / 1e3:9.3f} ms  {a.count:5d}x  {a.key[:90]}")
 
 
+def profile(name, table, pool, aabb, is_blend, top, **kw):
+    (voxels, _), prof, wall, busy = traced(lambda: cs.drive_sphere(
+        table, pool, aabb, is_blend, lambda xyz, argb: argb.view(torch.int32).sum(),
+        **kw))
+    print(f"[{name}] {voxels} voxels; profiled wall {wall:.2f} ms; device busy "
+          f"{busy:.2f} ms; idle {100 * (1 - busy / wall):.1f}%", flush=True)
+    by_kernel(prof, top)
+
+
+def profile_calls(name, fn, top, calls=10):
+    """`calls` back-to-back calls of one kernel's wrapper: the host time to
+    enqueue a call (no profiler, no synchronize inside), then the device
+    time of each of its launches beside the profiled wall time."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t) * 1e3 / calls
+    torch.cuda.synchronize()
+    _, prof, wall, busy = traced(lambda: [fn() for _ in range(calls)])
+    print(f"[{name}] {calls} calls; host enqueue {host:.4f} ms a call; profiled "
+          f"wall {wall / calls:.4f} ms a call; device busy {busy / calls:.4f} ms a "
+          f"call", flush=True)
+    by_kernel(prof, top)
+
+
+def k5_input():
+    """Phase 10's timing input: STREAM rows, a quarter live."""
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 1 << 30, cs.STREAM).astype(np.int32)
+    keys[rng.random(cs.STREAM) >= 0.25] = cs.INV
+    vals = tuple(torch.from_numpy(rng.random(cs.STREAM, dtype=np.float32)).cuda()
+                 for _ in range(4))
+    return torch.from_numpy(keys).cuda(), vals
+
+
+PATHS = ("untextured", "merge-runs", "supersampled", "textured", "k5", "k6")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--top", type=int, default=15)
-    top = ap.parse_args().top
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help=f"comma-separated subset of {','.join(PATHS)}")
+    args = ap.parse_args()
+    top, paths = args.top, args.paths.split(",")
+    if not set(paths) <= set(PATHS):
+        raise SystemExit(f"--paths: choose from {','.join(PATHS)}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile runs only on a GPU")
     import obj2voxel_tpu_torch as pt
@@ -73,15 +121,32 @@ def main():
     print(f"[gpu] {cs.gpu_info()}", flush=True)
     table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, cs.SPHERE_RES)
     table = pt.table_from_numpy(table_np, "cuda")
-    profile("untextured BLEND", table, None, aabb, True, top)
-    profile("merge-runs BLEND", table, None, aabb, True, top, merge_runs=True)
-    table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, 2 * cs.SPHERE_RES)
-    profile("supersampled MAX", pt.table_from_numpy(table_np, "cuda"), None, aabb,
-            False, top, stride=2 * cs.SPHERE_RES, do_down=True)
-    table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, cs.SPHERE_RES, textured=True)
-    pool, _ = cs.palette_pool()
-    profile("textured MAX", pt.table_from_numpy(table_np, "cuda"),
-            upload_pool(pool, "cuda"), aabb, False, top)
+    if "k5" in paths:
+        from obj2voxel_tpu_torch.ops.pack_pallas import pack_channels
+
+        keys, vals = k5_input()
+        profile_calls("K5 pack_channels, 2^22 rows, a quarter live",
+                      lambda: pack_channels(keys, vals), top)
+    if "k6" in paths:
+        from obj2voxel_tpu_torch.ops.merge_pallas import merge_runs
+
+        keys, chans, offsets = cs.sphere_slab_runs(table, aabb)
+        profile_calls(f"K6 merge_runs, sphere slab ({len(offsets) - 1} runs, "
+                      f"{keys.numel()} rows)", lambda: merge_runs(keys, chans, offsets),
+                      top)
+    if "untextured" in paths:
+        profile("untextured BLEND", table, None, aabb, True, top)
+    if "merge-runs" in paths:
+        profile("merge-runs BLEND", table, None, aabb, True, top, merge_runs=True)
+    if "supersampled" in paths:
+        table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, 2 * cs.SPHERE_RES)
+        profile("supersampled MAX", pt.table_from_numpy(table_np, "cuda"), None,
+                aabb, False, top, stride=2 * cs.SPHERE_RES, do_down=True)
+    if "textured" in paths:
+        table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, cs.SPHERE_RES, textured=True)
+        pool, _ = cs.palette_pool()
+        profile("textured MAX", pt.table_from_numpy(table_np, "cuda"),
+                upload_pool(pool, "cuda"), aabb, False, top)
 
 
 if __name__ == "__main__":

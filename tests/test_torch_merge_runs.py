@@ -8,6 +8,8 @@ bytes equal the JAX package's and the port's default route (the cube is
 materialless, so MAX and BLEND bytes are all white).
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +20,9 @@ from obj2voxel_tpu import engine as jeng
 from obj2voxel_tpu.ops import merge_pallas as jmerge
 import obj2voxel_tpu_torch as pt
 from obj2voxel_tpu_torch import engine
+from obj2voxel_tpu_torch.ops import _cuda
 from obj2voxel_tpu_torch.ops.merge_pallas import (
-    MAX_RUNS, merge_runs, plan_runs,
+    MAX_RUNS, MERGE_TILE, merge_runs, plan_levels, plan_runs,
 )
 
 torch.set_num_threads(1)
@@ -124,6 +127,128 @@ def test_plan_runs_levels():
         merge_runs(torch.zeros(MAX_RUNS + 1, dtype=torch.int32),
                    tuple(torch.zeros(MAX_RUNS + 1) for _ in range(4)),
                    list(range(MAX_RUNS + 2)))
+
+
+# the K6 wrapper's host side, pure torch: level plan, launches, scratch
+
+@pytest.mark.parametrize("counts", [
+    [5, 0, 7], [MERGE_TILE] * 2, [MERGE_TILE + 1, 1, 0, 0, 3 * MERGE_TILE - 1],
+    [0] * 31 + [10], list(range(32)), [1] * 17,
+], ids=["s3", "whole_tiles", "off_tiles", "only_last", "s32", "s17"])
+def test_plan_levels(counts):
+    offsets, levels = plan_runs(counts)
+    plans = plan_levels(offsets)
+    assert MERGE_TILE == 128 * 15 and len(plans) == levels
+    for level, plan in enumerate(plans):
+        pairs = [plan[i:i + 4] for i in range(0, len(plan) - 1, 4)]
+        assert len(plan) % 4 == 1 and 1 <= len(pairs) <= MAX_RUNS // 2
+        # the pairs are the plain version's groups, end to end over the rows
+        span = 2 << level
+        assert len(pairs) == -(-len(counts) // span)
+        assert pairs[0][0] == 0 and pairs[-1][2] == offsets[-1]
+        tiles = 0
+        for j, (a, m, e, first) in enumerate(pairs):
+            assert a == offsets[j * span]
+            assert m == offsets[min(j * span + span // 2, len(counts))]
+            assert e == offsets[min((j + 1) * span, len(counts))]
+            assert j == 0 or a == pairs[j - 1][2]
+            # a pair without rows gets no tile
+            assert first == tiles
+            tiles += -(-(e - a) // MERGE_TILE)
+        assert plan[-1] == tiles == sum(
+            -(-(e - a) // MERGE_TILE) for a, _, e, _ in pairs)
+
+
+@pytest.fixture
+def fake_kernels(monkeypatch):
+    """The K6 wrapper's call on meta tensors: the library records it instead
+    of launching."""
+    calls = []
+
+    class Lib:
+        def o2v_merge_runs(self, *args):
+            plan = ctypes.cast(args[11], ctypes.POINTER(ctypes.c_int))
+            flat, level = [], 0
+            while level < args[12]:
+                size = 2 + 4 * plan[len(flat)]
+                flat += plan[len(flat):len(flat) + size]
+                level += 1
+            calls.append((flat, args[12], args[13], args[5:10]))
+            return 0
+
+    scratch = []
+    empty = torch.empty
+
+    def tracked_empty(*size, **kw):
+        scratch.append(empty(*size, **kw))
+        return scratch[-1]
+
+    monkeypatch.setattr(_cuda, "lib", Lib)
+    monkeypatch.setattr(_cuda, "require_cuda", lambda name, *t: t[0].device)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(torch, "empty", tracked_empty)
+    _cuda.reset_launches()
+    yield calls, scratch
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 5, 12, 32])
+def test_merge_wrapper_levels_and_scratch(fake_kernels, s):
+    # one call launches one kernel a level; each level's plan is preceded by
+    # its number of group pairs; the levels before the last pass composites
+    # through at most two int64 buffers of one row each
+    calls, made = fake_kernels
+    counts = [1000 + 37 * i for i in range(s)]
+    offsets, levels = plan_runs(counts)
+    n = offsets[-1]
+    keys = torch.zeros(n, dtype=torch.int32, device="meta")
+    chans = tuple(torch.zeros(n, device="meta") for _ in range(4))
+    del made[:]
+    got_k, got_c = merge_runs(keys, chans, offsets)
+    assert _cuda.LAUNCHES["merge_runs"] == levels
+    if levels == 0:
+        assert got_k is keys and got_c == chans and not calls
+        return
+    ((flat, n_levels, rows, outs),) = calls
+    assert (n_levels, rows) == (levels, n)
+    assert flat == [x for plan in plan_levels(offsets) for x in (len(plan) // 4, *plan)]
+    out, scratch = made
+    assert out.shape == (5, n) and out.dtype == torch.int32
+    assert scratch.dtype == torch.int64
+    assert scratch.numel() == min(levels - 1, 2) * n
+    # the outputs are the rows of one buffer, at the pointers passed (a meta
+    # tensor's pointer is 0, so they are byte offsets)
+    assert list(outs) == [4 * n * i for i in range(5)]
+    assert got_k.dtype == torch.int32 and got_k.shape == (n,)
+    assert got_k.storage_offset() == 0
+    for i, c in enumerate(got_c, 1):
+        assert c.dtype == torch.float32 and c.shape == (n,)
+        assert 4 * c.storage_offset() == outs[i]
+
+
+@pytest.mark.parametrize("bad", ["dtype", "channels", "chan_dtype", "chan_shape",
+                                 "start", "end", "falling", "too_many"])
+def test_merge_runs_rejects_bad_inputs(bad):
+    keys = torch.zeros(6, dtype=torch.int32)
+    chans = [torch.zeros(6) for _ in range(4)]
+    offsets = [0, 2, 6]
+    if bad == "dtype":
+        keys = keys.to(torch.int64)
+    elif bad == "channels":
+        chans = chans[:3]
+    elif bad == "chan_dtype":
+        chans[1] = chans[1].to(torch.float64)
+    elif bad == "chan_shape":
+        chans[2] = torch.zeros(7)
+    elif bad == "start":
+        offsets = [1, 2, 6]
+    elif bad == "end":
+        offsets = [0, 2, 5]
+    elif bad == "falling":
+        offsets = [0, 4, 2, 6]
+    else:
+        offsets = [0] * (MAX_RUNS + 1) + [6]
+    with pytest.raises(ValueError, match="merge_runs"):
+        merge_runs(keys, chans, offsets)
 
 
 @pytest.fixture

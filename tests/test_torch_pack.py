@@ -7,8 +7,9 @@ import torch
 
 from obj2voxel_tpu.ops.pack_pallas import pack_channels_ref as jax_pack_channels_ref
 from obj2voxel_tpu.ops.pack_pallas import pack_exact_ref as jax_pack_exact_ref
+from obj2voxel_tpu_torch.ops import _cuda
 from obj2voxel_tpu_torch.ops.pack_pallas import (
-    pack_channels, pack_channels_ref, pack_exact, pack_exact_ref,
+    PACK_BLOCK, pack_channels, pack_channels_ref, pack_exact, pack_exact_ref,
 )
 
 torch.set_num_threads(1)
@@ -128,3 +129,64 @@ def test_pack_exact_rejects_bad_inputs(bad):
         vals = (torch.zeros(9),) + vals[1:]
     with pytest.raises(ValueError):
         pack_exact(keys, vals)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 512, 2048])
+def test_pack_channels_wrapper_layout(monkeypatch, blocks):
+    # one call, one launch count, one buffer: the five output rows, the
+    # count and a pad, then the look-back's status word of each 8192-slot
+    # block and its ticket (8-byte aligned; the launcher zeroes them).  A
+    # meta tensor's pointer is 0, so the pointers passed are byte offsets.
+    calls = []
+
+    class Lib:
+        def o2v_pack_channels(self, *args):
+            calls.append(args)
+            return 0
+
+    made = []
+    empty = torch.empty
+
+    def tracked_empty(*size, **kw):
+        made.append(empty(*size, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(_cuda, "lib", Lib)
+    monkeypatch.setattr(_cuda, "require_cuda", lambda name, *t: t[0].device)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda dev: 0)
+    n = blocks * PACK_BLOCK
+    keys = torch.zeros(n, dtype=torch.int32, device="meta")
+    vals = tuple(torch.zeros(n, device="meta") for _ in range(4))
+    monkeypatch.setattr(torch, "empty", tracked_empty)
+    _cuda.reset_launches()
+    k, v, count = pack_channels(keys, vals)
+    assert _cuda.LAUNCHES["pack_channels"] == len(calls) == 1
+    (buf,) = made
+    assert buf.dtype == torch.int32 and buf.numel() == 5 * n + 2 * blocks + 4
+    outs, count_at, status_at, rows = calls[0][5:10], *calls[0][10:13]
+    assert list(outs) == [4 * n * i for i in range(5)] and rows == n
+    assert count_at == 20 * n and status_at % 8 == 0
+    assert count_at + 4 <= status_at and status_at + 8 * (blocks + 1) <= 4 * buf.numel()
+    # the returned tensors are the views the pointers name
+    assert count.dtype == torch.int32 and count.shape == (1,)
+    assert 4 * count.storage_offset() == count_at
+    assert k.dtype == torch.int32 and k.shape == keys.shape and k.storage_offset() == 0
+    for i, x in enumerate(v, 1):
+        assert x.dtype == torch.float32 and x.shape == keys.shape
+        assert 4 * x.storage_offset() == outs[i]
+
+
+@pytest.mark.parametrize("bad", ["dtype", "channels", "shape", "two_d"])
+def test_pack_channels_rejects_bad_inputs(bad):
+    keys = torch.zeros(PACK_BLOCK, dtype=torch.int32)
+    vals = tuple(torch.zeros(PACK_BLOCK) for _ in range(4))
+    if bad == "dtype":
+        keys = keys.to(torch.int64)
+    elif bad == "channels":
+        vals = vals[:3]
+    elif bad == "shape":
+        vals = (torch.zeros(2 * PACK_BLOCK),) + vals[1:]
+    else:
+        keys = keys.reshape(2, -1)
+    with pytest.raises(ValueError):
+        pack_channels(keys, vals)
