@@ -4,24 +4,25 @@ Builds the hand-written CUDA kernels from obj2voxel_tpu_torch/csrc, holds
 each against its plain PyTorch version on the card, drives the main paths
 at real size -- `stream_slabs` on the 2M-triangle sphere at 1024^3,
 untextured BLEND as bench.py runs it, the same table textured (one 4096^2
-REPEAT texture) under MAX, the untextured table through the merge-runs
-route (K6), and the table at 2048^3 supersampled down to 1024^3 under MAX
-(the CLI's `-r 1024 -u`) -- and checks the outputs against known voxel
-counts, the default route, the CPU run of the same code, and the closed
-forms.
+REPEAT texture; K1's textured passes) under MAX, the untextured table
+through the merge-runs route (K6), and the table at 2048^3 supersampled
+down to 1024^3 under MAX (the CLI's `-r 1024 -u`) -- and checks the outputs
+against known voxel counts, the default route, the CPU run of the same
+code, and the closed forms.
 
     python3 chip_smoke.py             # all phases; needs one CUDA device
     python3 chip_smoke.py --phases 1,13
 
-Phases: 1 build; 2 K1 (and its input-area variant), 3 K2, 4 K3, 9 K4, 10
-K5, 13 K6 against their plain versions; 5 untextured end to end (with the
-merge-runs route, supersampling 2 and input-area weights) and 11 textured,
-card against CPU; 6 the unit-cube closed forms; 7 untextured, 12 textured,
-14 merge-runs and 15 supersampled real size; 8 kernel timings beside each
-kernel's bound.  Prints one line per phase, a JSON line with the kernels'
-launches, errors, times and bounds, and as its last line {"ok": true,
-"device": {...}}.  Any failure raises and exits non-zero before that line
-is printed.
+Phases: 1 build (with ptxas's registers, stack frame, spills and shared
+memory of every kernel); 2 K1 (and its input-area and textured variants),
+3 K2, 4 K3, 9 K4, 10 K5, 13 K6 against their plain versions; 5 untextured
+end to end (with the merge-runs route, supersampling 2 and input-area
+weights) and 11 textured, card against CPU; 6 the unit-cube closed forms;
+7 untextured, 12 textured, 14 merge-runs and 15 supersampled real size; 8
+kernel timings beside each kernel's bound.  Prints one line per phase, a
+JSON line with the kernels' launches, errors, times and bounds, and as its
+last line {"ok": true, "device": {...}}.  Any failure raises and exits
+non-zero before that line is printed.
 
 Bounds (`bound_ms`): the larger of the bytes the kernel must move (each
 input read once, each output written once) over 3.35 TB/s and its FP32
@@ -77,10 +78,12 @@ KERNELS = {
 # the kernels each main path must launch
 PATH_KERNELS = {
     "untextured": ("fused_pass", "segment_combine", "pack_exact"),
-    "textured": ("segment_combine", "pack_exact", "clip_pairs"),
+    "textured": ("fused_pass", "segment_combine", "pack_exact"),
     "merge_runs": ("fused_pass", "merge_runs", "segment_combine", "pack_exact"),
     "supersampled": ("fused_pass", "segment_combine", "pack_exact"),
 }
+# the kernels a main path must not launch: the textured passes clip in K1
+PATH_ABSENT = {"textured": ("clip_pairs",)}
 ALL_PHASES = set(range(1, 16))
 
 
@@ -270,7 +273,7 @@ def phase_k1(stats):
                 plain_ms=cuda_ms(lambda: fused_pass_ref(*args, **kw), reps=3),
                 library_ms=None,
             )
-            from obj2voxel_tpu_torch.engine import pass_pairs
+            from obj2voxel_tpu_torch.ops.clip_pallas import pass_pairs
 
             tri, vox, _, _, valid = pass_pairs(ordered.T.contiguous(), *args[1:], **kw)
             # the 12 columns read of each row (xyz 0:9, rgb 17:20), 20 B per
@@ -300,7 +303,77 @@ def phase_k1(stats):
         details.append(f"wide@{local_base}:{n}")
         err = max(err, e)
     stats["fused_pass"]["max_abs_err"] = err
+    details += k1_textured(stats)
     phase("2 K1 fused_pass vs plain", t0, " ".join(details))
+
+
+def compare_exact(got, want, what):
+    """K1 textured outputs: keys, count, order, rows and w, u, v equal to the
+    plain version's bit for bit (both round every float32 operation to
+    nearest, in the same order); returns the count."""
+    n = int(want[5].item())
+    if int(got[5].item()) != n:
+        fail(f"{what}: count {int(got[5].item())} != {n}")
+    for g, w, name in zip(got, want, ("keys", "w", "u", "v", "rows")):
+        if g.dtype != w.dtype or not torch.equal(g.view(torch.int32),
+                                                 w.view(torch.int32)):
+            fail(f"{what}: {name} differ from the plain version")
+    return n
+
+
+def grazing_table(n):
+    """grazing_pairs' triangles as (n, 24) table rows: at expand 1 each
+    row's one slot is the voxel at its AABB's low corner."""
+    tri, _ = grazing_pairs(n)
+    table = torch.zeros((n, 24), dtype=torch.float32, device=tri.device)
+    table[:, 0:16] = tri.T
+    return table.contiguous()
+
+
+def k1_textured(stats):
+    """K1's textured variant against its plain version, with and without
+    ref_weights: the sphere pass of phase 2 on the textured table, and
+    grazing_pairs as table rows at expand 1 and 8; then its timing."""
+    from obj2voxel_tpu_torch.ops.clip_pallas import pass_pairs
+    from obj2voxel_tpu_torch.ops.pass_fused import fused_pass, fused_pass_ref
+
+    table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES, textured=True)
+    ordered, r0, z_lo, z_hi = sphere_pass(torch.from_numpy(table_np).cuda(), aabb,
+                                          lambda n: n // 2)
+    n_rows = min(BUDGET // 8, ordered.shape[0] - r0)
+    sphere = ((ordered, r0, n_rows, 0, z_lo, z_hi, SPHERE_RES),
+              dict(expand=8, budget=BUDGET, wide_local=False, textured=True))
+    graze = grazing_table(4096)
+    cases = [("sphere pass", *sphere)] + [
+        (f"grazing rows expand {e}", (graze, 0, 4096, 0, 0, 16, 16),
+         dict(expand=e, budget=4096 * e, wide_local=False, textured=True))
+        for e in (1, 8)]
+    details = []
+    for what, args, kw in cases:
+        for ref in (False, True):
+            n = compare_exact(fused_pass(*args, ref_weights=ref, **kw),
+                              fused_pass_ref(*args, ref_weights=ref, **kw),
+                              f"K1 textured {what} ref_weights={ref}")
+            details.append(f"textured {what}{' ref_weights' if ref else ''}:{n}")
+    # the boundary case: a triangle in the plane x = 6 lies in voxel x = 6
+    edge = fused_pass(graze, 0, 2, 0, 0, 16, 16, expand=1, budget=256,
+                      textured=True)
+    if int(edge[5].item()) != 2 or int(edge[0][0]) != (5 * 16 + 5) * 16 + 6:
+        fail("K1 textured: a plane on a voxel face must belong to the hi voxel")
+    args, kw = sphere
+    t = stats["fused_pass_textured"]
+    t.update(ms=cuda_ms(lambda: fused_pass(*args, **kw)),
+             plain_ms=cuda_ms(lambda: fused_pass_ref(*args, **kw), reps=3),
+             library_ms=None, max_abs_err=0.0)
+    n = int(fused_pass(*args, **kw)[5].item())
+    tri, vox, _, _, valid = pass_pairs(ordered.T.contiguous(), *args[1:],
+                                       expand=8, budget=BUDGET, wide_local=False)
+    # the 15 columns read of each row (xyz 0:9, uv 9:15), 20 B per live pair
+    # written (key, w, u, v, row) and the count; the clip with UVs, the
+    # AABB and rank decode (~25) per slot in its AABB
+    bound(stats, "fused_pass_textured", n_rows * 60 + n * 20 + 4,
+          clip_flops(tri, vox, valid, 5) + 25 * int(valid.sum()))
+    return details
 
 
 def k2_streams(rng):
@@ -604,8 +677,9 @@ def compare_clip(got, want, what):
 
 
 def phase_k4(stats):
-    from obj2voxel_tpu_torch.engine import pass_pairs
-    from obj2voxel_tpu_torch.ops.clip_pallas import clip_pairs, clip_pairs_ref
+    from obj2voxel_tpu_torch.ops.clip_pallas import (
+        clip_pairs, clip_pairs_ref, pass_pairs,
+    )
 
     t0 = time.perf_counter()
     table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES, textured=True)
@@ -880,6 +954,12 @@ def real_size(name, table, pool, aabb, is_blend, check, info, want=SPHERE_VOXELS
     for kernel in PATH_KERNELS[name]:
         if launches[kernel] <= 0:
             fail(f"{name} main path launched {kernel} no time")
+    for kernel in PATH_ABSENT.get(name, ()):
+        if launches[kernel]:
+            fail(f"{name} main path launched {kernel} {launches[kernel]} times")
+    if launches["pack_exact"] > launches["segment_combine"]:
+        # each slab merge runs K2 then K3 once; more K3 means K3 per pass
+        fail(f"{name} main path launched K3 per pass: {launches}")
     times = timed_runs(lambda: drive_sphere(table, pool, aabb, is_blend, check, **kw),
                        (voxels, checked), f"{name} sphere")
     med = sorted(times)[1]
@@ -1042,11 +1122,15 @@ def main():
     from obj2voxel_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
-    _cuda.build(verbose=True)
+    _cuda.build()
     _cuda.lib()
+    # registers, stack frame, spills and static shared memory of each kernel
+    for line in _cuda.resource_log_path().read_text().splitlines():
+        if line.strip():
+            print(f"[ptxas] {line.strip()}", flush=True)
     phase("1 build", t0, f"nvcc {_cuda.BUILD_SECONDS} s -> {_cuda.library_path().name}")
 
-    stats = {name: {} for name in KERNELS}
+    stats = {name: {} for name in (*KERNELS, "fused_pass_textured")}
     for num, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3), (9, phase_k4),
                     (10, phase_k5), (13, phase_k6)):
         if want & {num, 8}:
@@ -1076,16 +1160,18 @@ def main():
     if want != ALL_PHASES:
         print("[partial run: no result line]", flush=True)
         return
-    print(json.dumps({"kernels": [
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    line = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(by_path[p][name] for p in by_path),
          "launches_by_path": {p: by_path[p][name] for p in by_path},
-         "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
-         "bound_ms": stats[name]["bound_ms"], "bound_by": stats[name]["bound_by"],
-         "library_ms": stats[name]["library_ms"]}
+         **{k: stats[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
-    ]}), flush=True)
+    ]
+    # K1's textured variant: the same kernel source and launch count
+    line[0]["variants"] = {"textured": {k: stats["fused_pass_textured"][k]
+                                        for k in keys}}
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

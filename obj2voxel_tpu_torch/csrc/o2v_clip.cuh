@@ -1,5 +1,5 @@
-// Triangle / voxel-cube clip device code shared by the fused pass (K1) and
-// the standalone clip (K4), so the two cannot drift apart.
+// Triangle / voxel-cube clip device code shared by the fused pass (K1, both
+// variants) and the standalone clip (K4), so they cannot drift apart.
 //
 // The same operations in the same order as ops/clip.py (`_clip_one_plane`,
 // `_clip_polygons`, `_area_uv`) with explicit round-to-nearest intrinsics;
@@ -7,6 +7,21 @@
 // epsilon plane tests or the edge-plane intersections.  A polygon is NCH
 // channels (x, y, z and optionally u, v) of kSlots vertices in the closed
 // representation: slot[count] duplicates slot[0].
+//
+// Where the polygon lives.  A Sutherland-Hodgman pass writes its i-th
+// emission to slot n, with n known only at run time; an array indexed so
+// cannot stay in registers, and as two per-thread arrays (240 B a thread for
+// 3 channels, 400 B for 5) it went to local memory, whose traffic at full
+// occupancy overflows L1 into L2.  Here the polygon lives in registers and is
+// only ever indexed by unrolled loop counters; each plane's emissions go to a
+// per-thread scratch in shared memory at their run-time slot, and are read
+// back into registers at static slots.  The scratch is laid out
+// [slot][channel][thread], so a warp touching one (slot, channel) hits 32
+// consecutive words: no bank conflicts whatever slot each lane writes.
+//
+// Two exact shortcuts: a polygon with no vertex left stays empty, so the
+// clip stops there; and a triangle whose three vertices pass all six plane
+// tests comes through every plane unchanged, so it goes straight to the fan.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,26 +31,49 @@ namespace {
 constexpr float kEps = 1.0f / 65536.0f;  // reference EPSILON = 2^-16
 constexpr int kSlots = 10;  // closed polygon after six planes: 3 + 6 + 1
 
-// One Sutherland-Hodgman pass (ops/clip.py `_clip_one_plane`): C input slots
-// in the closed representation, AXIS and KEEP_HI static.  Every channel is
-// interpolated with the same t.
-template <int NCH, int C, int AXIS, bool KEEP_HI>
-__device__ __forceinline__ void clip_plane(const float (&in)[NCH][kSlots],
-                                           int count, float plane,
-                                           float (&out)[NCH][kSlots],
-                                           int& new_count) {
-  const float* v = in[AXIS];
+// Shared-memory bytes of the polygon scratch of a block of `threads`.
+__host__ __device__ constexpr int clip_scratch_bytes(int nch, int threads) {
+  return kSlots * nch * threads * static_cast<int>(sizeof(float));
+}
+
+// One thread's polygon scratch: element (slot, channel) at
+// base[(slot * NCH + channel) * THREADS], base = &block_scratch[threadIdx.x].
+template <int NCH, int THREADS>
+struct PolyScratch {
+  float* base;
+  __device__ __forceinline__ float& at(int slot, int c) const {
+    return base[(slot * NCH + c) * THREADS];
+  }
+};
+
+// The plane test of ops/clip.py `_clip_one_plane` for C input slots (count
+// distinct vertices, closed): inside[i] for every slot.
+template <int C, bool KEEP_HI>
+__device__ __forceinline__ void plane_inside(const float* v, int count,
+                                             float plane, bool (&inside)[C]) {
   bool all_lo = true;
 #pragma unroll
   for (int i = 0; i < C - 1; ++i) all_lo &= (v[i] < plane) || (i >= count);
-
-  bool inside[C];
 #pragma unroll
   for (int i = 0; i < C; ++i) {
     const float gap = __fsub_rn(plane, v[i]);
     inside[i] = KEEP_HI ? (gap < kEps && !all_lo)
                         : (all_lo || (v[i] < plane && gap >= kEps));
   }
+}
+
+// One Sutherland-Hodgman pass (ops/clip.py `_clip_one_plane`): C input slots
+// of `a` in the closed representation, AXIS and KEEP_HI static.  Every
+// channel is interpolated with the same t.  Emissions go to the scratch at
+// their slot; the closed output is then read back into `a` (slots 0..C).
+// Returns the new vertex count.
+template <int NCH, int THREADS, int C, int AXIS, bool KEEP_HI>
+__device__ __forceinline__ int clip_plane(float (&a)[NCH][kSlots], int count,
+                                          float plane,
+                                          const PolyScratch<NCH, THREADS>& s) {
+  const float* v = a[AXIS];
+  bool inside[C];
+  plane_inside<C, KEEP_HI>(v, count, plane, inside);
 
   int n = 0;
 #pragma unroll
@@ -44,7 +82,7 @@ __device__ __forceinline__ void clip_plane(const float (&in)[NCH][kSlots],
       if (inside[i]) {
         if (n <= C) {
 #pragma unroll
-          for (int c = 0; c < NCH; ++c) out[c][n] = in[c][i];
+          for (int c = 0; c < NCH; ++c) s.at(n, c) = a[c][i];
         }
         ++n;
       }
@@ -58,8 +96,8 @@ __device__ __forceinline__ void clip_plane(const float (&in)[NCH][kSlots],
         if (n <= C) {
 #pragma unroll
           for (int c = 0; c < NCH; ++c)
-            out[c][n] = __fadd_rn(__fmul_rn(omt, in[c][i]),
-                                  __fmul_rn(t, in[c][i + 1]));
+            s.at(n, c) = __fadd_rn(__fmul_rn(omt, a[c][i]),
+                                   __fmul_rn(t, a[c][i + 1]));
         }
         ++n;
       }
@@ -70,27 +108,59 @@ __device__ __forceinline__ void clip_plane(const float (&in)[NCH][kSlots],
   // guards degenerate input)
   if (n <= C) {
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) out[c][n] = out[c][0];
+    for (int c = 0; c < NCH; ++c) s.at(n, c) = s.at(0, c);
   }
-  new_count = n;
+  // slots past n + 1 read back whatever an earlier plane left there; like
+  // the reference's dead slots, no later test or fan triangle uses them
+#pragma unroll
+  for (int k = 0; k <= C; ++k) {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) a[c][k] = s.at(k, c);
+  }
+  return n;
+}
+
+// Whether the triangle in slots 0..2 passes all six plane tests at every
+// vertex: then every plane emits it unchanged.
+__device__ __forceinline__ bool inside_all_planes(const float* x,
+                                                  const float* y,
+                                                  const float* z, float vx,
+                                                  float vy, float vz) {
+  bool in_lo[3][4], in_hi[3][4];
+  plane_inside<4, true>(x, 3, vx, in_lo[0]);
+  plane_inside<4, true>(y, 3, vy, in_lo[1]);
+  plane_inside<4, true>(z, 3, vz, in_lo[2]);
+  plane_inside<4, false>(x, 3, __fadd_rn(vx, 1.0f), in_hi[0]);
+  plane_inside<4, false>(y, 3, __fadd_rn(vy, 1.0f), in_hi[1]);
+  plane_inside<4, false>(z, 3, __fadd_rn(vz, 1.0f), in_hi[2]);
+  bool all = true;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) all &= in_lo[a][i] && in_hi[a][i];
+  }
+  return all;
 }
 
 // The six planes in the reference's order (keep-hi at pos[axis] for x, y,
 // z, then keep-lo at pos[axis] + 1).  `a` holds the closed triangle in slots
-// 0..3 on entry and the clipped polygon on return; `b` is scratch.  Returns
-// the vertex count.
-template <int NCH>
-__device__ __forceinline__ int clip_voxel(float (&a)[NCH][kSlots],
-                                          float (&b)[NCH][kSlots], float vx,
-                                          float vy, float vz) {
-  int n = 3;
-  clip_plane<NCH, 4, 0, true>(a, n, vx, b, n);
-  clip_plane<NCH, 5, 1, true>(b, n, vy, a, n);
-  clip_plane<NCH, 6, 2, true>(a, n, vz, b, n);
-  clip_plane<NCH, 7, 0, false>(b, n, __fadd_rn(vx, 1.0f), a, n);
-  clip_plane<NCH, 8, 1, false>(a, n, __fadd_rn(vy, 1.0f), b, n);
-  clip_plane<NCH, 9, 2, false>(b, n, __fadd_rn(vz, 1.0f), a, n);
-  return n;
+// 0..3 on entry and the clipped polygon on return.  Returns the vertex count.
+template <int NCH, int THREADS>
+__device__ __forceinline__ int clip_voxel(float (&a)[NCH][kSlots], float vx,
+                                          float vy, float vz,
+                                          const PolyScratch<NCH, THREADS>& s) {
+  if (inside_all_planes(a[0], a[1], a[2], vx, vy, vz)) return 3;
+  int n = clip_plane<NCH, THREADS, 4, 0, true>(a, 3, vx, s);
+  if (n == 0) return 0;
+  n = clip_plane<NCH, THREADS, 5, 1, true>(a, n, vy, s);
+  if (n == 0) return 0;
+  n = clip_plane<NCH, THREADS, 6, 2, true>(a, n, vz, s);
+  if (n == 0) return 0;
+  n = clip_plane<NCH, THREADS, 7, 0, false>(a, n, __fadd_rn(vx, 1.0f), s);
+  if (n == 0) return 0;
+  n = clip_plane<NCH, THREADS, 8, 1, false>(a, n, __fadd_rn(vy, 1.0f), s);
+  if (n == 0) return 0;
+  return clip_plane<NCH, THREADS, 9, 2, false>(a, n, __fadd_rn(vz, 1.0f), s);
 }
 
 // Area of the clipped polygon by a triangle fan from slot 0 (ops/clip.py

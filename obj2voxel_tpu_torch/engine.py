@@ -12,8 +12,9 @@ A pass is one of two shapes, chosen per mesh as the JAX package chooses
 (obj2voxel_tpu/engine.py:1250-1251, :503): untextured meshes take K1
 (ops/pass_fused.py: expansion, rank decode, clip, key, premultiply, ordered
 compaction in one kernel); a mesh whose texture pool holds more than one
-pixel takes `_textured_pass` (rank decode in torch ops, K4 clip with UVs,
-texture sampling, K3 compaction).  Both return the live pairs in slot order.
+pixel takes `_textured_pass` (K1's textured variant: the same pass with
+UVs, each live pair carrying its table row, then texture sampling in torch
+ops).  Both return the live pairs in slot order.
 With input-area weights (`input_area_weights`, or O2V_WEIGHT_MODE=input_area)
 an occupied voxel weighs its whole triangle's area instead of the clipped
 piece's (obj2voxel_tpu/engine.py:488-501).
@@ -53,16 +54,14 @@ import torch
 from .constants import BLEND_STRATEGY, MAX_STRATEGY, PAIR_TILE
 from .geometry import compute_mesh_transform, mesh_bounds
 from .io import debug_stl
-from .ops._cuda import INVALID_KEY
-from .ops.clip_pallas import clip_pairs
 from .ops.color import sample_pair_colors_uv, upload_pool
 from .ops.combine import (
-    downscale_keys, finalize_colors, pack_argb, premultiply, sort_channels,
+    downscale_keys, finalize_colors, pack_argb, sort_channels,
 )
 from .ops.combine_pallas import segment_combine
 from .ops.merge_pallas import MAX_RUNS, merge_runs as merge_sorted_runs, plan_runs
 from .ops.pack_pallas import pack_exact
-from .ops.pass_fused import fused_pass, slot_voxels, triangle_area
+from .ops.pass_fused import fused_pass
 from .ops.plan import plan_mesh
 from .ops.plan_device import gather_ordered, plan_mesh_device
 from .ops.subdivide import subdivide_soup
@@ -153,56 +152,34 @@ def plan_fold_chunks(sizes, cap):
     return groups
 
 
-def pass_pairs(table_t, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
-               budget, wide_local):
-    """The (triangle, voxel) pairs of one pass, laid out for K4.
-
-    `table_t` is the plan-ordered table channel-major, (24, M).  Slot s of
-    the budget belongs to row r0 + (s >> log2(expand)) and has within-AABB
-    rank local_base + (s & (expand - 1)); the rank decodes to a voxel as in
-    obj2voxel_tpu/engine.py:410-480.  Returns (tri_data (16, budget) f32,
-    vox_data (4, budget) f32, attrs (5, budget) f32 = the slot rows' columns
-    16:21 (type, r, g, b, texture id), voxel (vx, vy, vz) int64, valid
-    (budget,) bool: the slot's row is one of the pass's and its rank lies in
-    the row's AABB)."""
-    dev = table_t.device
-    slot = torch.arange(budget, dtype=torch.int64, device=dev)
-    row = slot >> (expand.bit_length() - 1)
-    row_live = row < n_rows
-    row = torch.clamp(row, max=n_rows - 1)
-    local = local_base + (slot & (expand - 1))
-    vx, vy, vz, inside = slot_voxels(table_t[:, r0 : r0 + n_rows].T, row, local,
-                                     z_lo, z_hi, stride, wide_local)
-    # one gather of the 21 used columns; both slices stay contiguous
-    cols = table_t[0:21, r0 + row]
-    vox = torch.stack([vx, vy, vz, torch.zeros_like(vx)]).to(torch.float32)
-    return cols[0:16], vox, cols[16:21], (vx, vy, vz), row_live & inside
-
-
-def _textured_pass(table_t, pool, r0, n_rows, local_base, z_lo, z_hi, stride,
+def _textured_pass(table, pool, r0, n_rows, local_base, z_lo, z_hi, stride,
                    *, expand, budget, wide_local, ref_weights=False):
     """One pass of a textured mesh (obj2voxel_tpu/engine.py:410-524, the
-    unfused branch of `_bucket_pass`), with `fused_pass`'s contract: K4
-    clips all `budget` pairs of `pass_pairs` with their UVs, the pair's
-    color is sampled from the pool, and K3 compacts the live pairs (valid
-    and w > 0) in slot order.  `ref_weights` weighs each occupied voxel by
-    its whole triangle's area.  `table_t` is channel-major (24, M).
-    Returns (key, w, wr, wg, wb (budget,), count (1,) int32)."""
-    tri, vox, attrs, (vx, vy, vz), valid = pass_pairs(
-        table_t, r0, n_rows, local_base, z_lo, z_hi, stride, expand=expand,
-        budget=budget, wide_local=wide_local)
-    out = clip_pairs(tri, vox)
-    w = torch.where(valid, out[0], 0.0)
-    if ref_weights:
-        w = torch.where(w > 0, triangle_area(tri), 0.0)
+    unfused branch of `_bucket_pass`), with `fused_pass`'s contract: K1's
+    textured variant clips the pass's slots with their UVs and compacts the
+    live pairs in slot order, each with its table row; the pairs' colors are
+    sampled from the pool by the rows' type, color and texture id and
+    premultiplied.  `ref_weights` weighs each occupied voxel by its whole
+    triangle's area.  `table` is the plan-ordered (M, 24) table.  Returns
+    (key, w, wr, wg, wb (budget,), count (1,) int32); rows past the count
+    sample row 0 at weight 0, so they stay (INVALID, 0)."""
+    key, w, u, v, row, count = fused_pass(
+        table, r0, n_rows, local_base, z_lo, z_hi, stride, expand=expand,
+        budget=budget, wide_local=wide_local, ref_weights=ref_weights,
+        textured=True)
+    # columns 16:21 (type, r, g, b, texture id) of each pair's row
+    attrs = table[:, 16:21].index_select(0, row).T
     colors = sample_pair_colors_uv(
-        out[1], out[2], attrs[0].to(torch.int64), attrs[1:4].T,
-        attrs[4].to(torch.int64), *pool,
+        u, v, attrs[0].to(torch.int64), attrs[1:4].T, attrs[4].to(torch.int64),
+        *pool,
     )
-    key = (vz - z_lo) * (stride * stride) + vy * stride + vx
-    key = torch.where(w > 0, key, INVALID_KEY).to(torch.int32)
-    k, chans, count = pack_exact(key, premultiply(w, colors))
-    return (k, *chans, count)
+    # premultiply in place of the spent u, v and rows: the pass's outputs
+    # stay the one buffer K1 wrote until the slab merges (a wave holds tens
+    # of passes)
+    wr, wg, wb = u, v, row.view(torch.float32)
+    for c, out in enumerate((wr, wg, wb)):
+        torch.mul(w, colors[:, c], out=out)
+    return (key, w, wr, wg, wb, count)
 
 
 def _combine_presorted(sorted_keys, chans, is_blend):
@@ -436,9 +413,6 @@ def stream_slabs(
         group = 1
     table = gather_ordered(tri_table, order, segments[-1].r1, group)
     del order
-    if textured:
-        # channel-major once, so each pass gathers its K4 rows directly
-        table = table.T.contiguous()
 
     by_slab: dict[tuple[int, int], list] = {}
     for seg in segments:

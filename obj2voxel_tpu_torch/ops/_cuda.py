@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "o2v_kerne
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
     *ARCH_FLAGS, "-O3", "--fmad=false", "-std=c++17", "-lineinfo",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "--resource-usage",
 ]
 
 #: Sentinel key of dead rows; sorts to the end (csrc O2V_INV).
@@ -48,10 +48,10 @@ BUILD_SECONDS = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # keys_out, w, r, g, b (out), count_out, slot scratch x5, tile counts,
+    # keys_out, 4 channels (out), count_out, slot scratch x5, tile counts,
     # tile offsets, table, n_table_rows, r0, n_rows, local_base, z_lo, z_hi,
-    # stride, log2_expand, budget, wide_local, ref_weights, stream
-    "o2v_fused_pass": [_P] * 6 + [_P] * 5 + [_P, _P] + [_P] + [_I] * 11 + [_P],
+    # stride, log2_expand, budget, wide_local, ref_weights, textured, stream
+    "o2v_fused_pass": [_P] * 6 + [_P] * 5 + [_P, _P] + [_P] + [_I] * 12 + [_P],
     # keys, w, r, g, b, out x5, tile key_first, key_last, agg (4 x tiles),
     # carry (4 x tiles), n, is_blend, stream
     "o2v_segment_combine": [_P] * 5 + [_P] * 5 + [_P] * 4 + [_I, _I, _P],
@@ -99,9 +99,16 @@ def library_path() -> Path:
     return BUILD_DIR / f"libo2v_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
+def resource_log_path() -> Path:
+    """ptxas's resource usage of every kernel of the library, written by
+    `build` beside it."""
+    return library_path().with_suffix(".ptxas.txt")
+
+
+def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it exists: one nvcc
-    per source, all started together, then one link."""
+    per source, all started together, then one link.  ptxas's resource
+    usage of each source goes to `resource_log_path()`."""
     global BUILD_SECONDS
     so = library_path()
     if so.exists():
@@ -109,22 +116,20 @@ def build(verbose: bool = False) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     nvcc = _nvcc()
-    extra = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
-        jobs.append((obj, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for obj, proc in jobs:
+    failed, log = [], []
+    for src, obj, proc in jobs:
         out = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(f"{obj.name}: nvcc failed ({proc.returncode}):\n{out}")
-        elif verbose and out:
-            print(out, flush=True)
-    objs = [obj for obj, _ in jobs]
+        log.append(f"== {src.name}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
     try:
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -137,6 +142,7 @@ def build(verbose: bool = False) -> Path:
             raise RuntimeError(
                 f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
             )
+        resource_log_path().write_text("\n".join(log))
         os.replace(tmp, so)
     finally:
         for obj in objs:

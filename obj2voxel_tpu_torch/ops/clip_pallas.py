@@ -18,6 +18,7 @@ import torch
 
 from . import _cuda
 from .clip import clip_channels
+from .pass_fused import slot_voxels
 
 
 def clip_pairs_ref(tri_data, vox_data):
@@ -55,3 +56,30 @@ def clip_pairs(tri_data, vox_data):
     _cuda.check(err, "clip_pairs")
     _cuda.LAUNCHES["clip_pairs"] += 1
     return out
+
+
+def pass_pairs(table_t, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
+               budget, wide_local):
+    """The (triangle, voxel) pairs of one pass, laid out for `clip_pairs`
+    (the engine's passes decode their slots in K1 instead).
+
+    `table_t` is the plan-ordered table channel-major, (24, M).  Slot s of
+    the budget belongs to row r0 + (s >> log2(expand)) and has within-AABB
+    rank local_base + (s & (expand - 1)); the rank decodes to a voxel as in
+    obj2voxel_tpu/engine.py:410-480.  Returns (tri_data (16, budget) f32,
+    vox_data (4, budget) f32, attrs (5, budget) f32 = the slot rows' columns
+    16:21 (type, r, g, b, texture id), voxel (vx, vy, vz) int64, valid
+    (budget,) bool: the slot's row is one of the pass's and its rank lies in
+    the row's AABB)."""
+    dev = table_t.device
+    slot = torch.arange(budget, dtype=torch.int64, device=dev)
+    row = slot >> (expand.bit_length() - 1)
+    row_live = row < n_rows
+    row = torch.clamp(row, max=n_rows - 1)
+    local = local_base + (slot & (expand - 1))
+    vx, vy, vz, inside = slot_voxels(table_t[:, r0 : r0 + n_rows].T, row, local,
+                                     z_lo, z_hi, stride, wide_local)
+    # one gather of the 21 used columns; both slices stay contiguous
+    cols = table_t[0:21, r0 + row]
+    vox = torch.stack([vx, vy, vz, torch.zeros_like(vx)]).to(torch.float32)
+    return cols[0:16], vox, cols[16:21], (vx, vy, vz), row_live & inside

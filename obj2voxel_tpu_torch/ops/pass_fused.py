@@ -2,9 +2,9 @@
 (csrc/fused_pass.cu).
 
 The counterpart of obj2voxel_tpu/ops/pass_fused.py `fused_pass_pallas` with
-`pack=True`, for untextured passes.  Rows [r0, r0 + n_rows) of the
-plan-ordered (M, 24) triangle table each own `expand` = 2^k pair slots; slot
-s belongs to row s >> k and has within-AABB rank local_base + (s & (2^k-1)).
+`pack=True`.  Rows [r0, r0 + n_rows) of the plan-ordered (M, 24) triangle
+table each own `expand` = 2^k pair slots; slot s belongs to row s >> k and
+has within-AABB rank local_base + (s & (2^k-1)).
 Per slot: the row's voxel AABB (x/y clamped to [0, stride), z to
 [z_lo, z_hi)), the rank decoded to a voxel, the six-plane clip with the
 clipped area as weight, the key (vz - z_lo) * stride^2 + vy * stride + vx
@@ -19,6 +19,13 @@ others use the float-reciprocal divmod of the TPU kernel.
 With `ref_weights` (the TPU kernel's variant, the engine's input-area
 weights) every occupied voxel weighs the area of its whole table triangle,
 `triangle_area`, instead of the clipped piece's.
+
+With `textured` (the TPU kernel's variant of the same name) the clip also
+carries the UVs, and a live pair's channels are (w, u, v, row): the clipped
+piece's area-weighted UV centroid in place of the premultiplied color, and,
+where the TPU kernel writes zeros, the pair's table row as int32, so that
+the texture sampling finds the row's type, color and texture id.  Both flags
+combine.
 
 `fused_pass` takes the plain version for CPU tensors and launches the CUDA
 kernel for CUDA tensors; `fused_pass_ref` is the plain version, built from
@@ -90,7 +97,8 @@ def slot_voxels(rows, row, local, z_lo, z_hi, stride, wide_local):
 
 
 def fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride, *,
-                   expand, budget, wide_local, ref_weights=False):
+                   expand, budget, wide_local, ref_weights=False,
+                   textured=False):
     """Plain version of the pass; same contract as `fused_pass`."""
     dev = table.device
     rows = table[r0 : r0 + n_rows]
@@ -104,20 +112,24 @@ def fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride, *,
     row, vx, vy, vz = row[keep], vx[keep], vy[keep], vz[keep]
 
     vox = torch.stack([vx, vy, vz]).to(torch.float32)
-    w = clip_channels(rows[row, 0:16].T, vox)[0][0]
+    w, u, v = (x[0] for x in clip_channels(rows[row, 0:16].T, vox))
     if ref_weights:
         w = torch.where(w > 0, triangle_area(rows[:, 0:9].T)[row], 0.0)
     live = w > 0
     n = int(live.sum())
-    w = w[live]
-    rgb = rows[row[live], 17:20]
+    w, row = w[live], row[live]
     key = ((vz - z_lo) * (stride * stride) + vy * stride + vx)[live]
+    if textured:
+        chans = (w, u[live], v[live], (r0 + row).to(torch.int32))
+    else:
+        rgb = rows[row, 17:20]
+        chans = (w, w * rgb[:, 0], w * rgb[:, 1], w * rgb[:, 2])
 
     out_k = torch.full((budget,), _cuda.INVALID_KEY, dtype=torch.int32, device=dev)
     out_k[:n] = key.to(torch.int32)
     outs = []
-    for c in (w, w * rgb[:, 0], w * rgb[:, 1], w * rgb[:, 2]):
-        o = torch.zeros(budget, dtype=torch.float32, device=dev)
+    for c in chans:
+        o = torch.zeros(budget, dtype=c.dtype, device=dev)
         o[:n] = c
         outs.append(o)
     count = torch.tensor([n], dtype=torch.int32, device=dev)
@@ -147,12 +159,14 @@ def _check(table, r0, n_rows, local_base, z_lo, z_hi, stride, expand, budget,
 
 
 def fused_pass(table, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
-               budget, wide_local=False, ref_weights=False):
+               budget, wide_local=False, ref_weights=False, textured=False):
     """Run one pass over table rows [r0, r0 + n_rows); `ref_weights` weighs
     each occupied voxel by its whole triangle's area.
 
     Returns (key (budget,) int32, w, wr, wg, wb (budget,) float32, count (1,)
-    int32): the live pairs in slot order, then (INVALID, 0)."""
+    int32): the live pairs in slot order, then (INVALID, 0).  With
+    `textured`, (key, w, u, v (budget,) float32, row (budget,) int32,
+    count)."""
     r0, n_rows, local_base = int(r0), int(n_rows), int(local_base)
     z_lo, z_hi, stride = int(z_lo), int(z_hi), int(stride)
     _check(table, r0, n_rows, local_base, z_lo, z_hi, stride, expand, budget,
@@ -160,23 +174,27 @@ def fused_pass(table, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
     if table.device.type == "cpu":
         return fused_pass_ref(table, r0, n_rows, local_base, z_lo, z_hi, stride,
                               expand=expand, budget=budget,
-                              wide_local=wide_local, ref_weights=ref_weights)
+                              wide_local=wide_local, ref_weights=ref_weights,
+                              textured=textured)
     dev = _cuda.require_cuda("fused_pass", table)
-    key = torch.empty(budget, dtype=torch.int32, device=dev)
-    chans = [torch.empty(budget, dtype=torch.float32, device=dev) for _ in range(4)]
-    count = torch.empty(1, dtype=torch.int32, device=dev)
-    s_key = torch.empty_like(key)
-    s_chans = [torch.empty_like(c) for c in chans]
     n_tiles = -(-budget // _cuda.COMPACT_TILE)
-    tile_counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    tile_offsets = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    # one buffer for the outputs (key, 4 channels, count) and one for the
+    # slot-ordered scratch and the tile counts and offsets: two allocations
+    # a pass
+    out = torch.empty(5 * budget + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(5 * budget + 2 * n_tiles, dtype=torch.int32, device=dev)
+    key, count = out[:budget], out[5 * budget:]
+    chans = [out[(i + 1) * budget:(i + 2) * budget] for i in range(4)]
+    # the fourth channel of a textured pass is the row's int32
+    chans = [c if textured and i == 3 else c.view(torch.float32)
+             for i, c in enumerate(chans)]
+    op, sp = out.data_ptr(), scratch.data_ptr()
     err = _cuda.lib().o2v_fused_pass(
-        key.data_ptr(), *(c.data_ptr() for c in chans), count.data_ptr(),
-        s_key.data_ptr(), *(c.data_ptr() for c in s_chans),
-        tile_counts.data_ptr(), tile_offsets.data_ptr(),
+        *(op + 4 * i * budget for i in range(6)),
+        *(sp + 4 * i * budget for i in range(6)), sp + 4 * (5 * budget + n_tiles),
         table.data_ptr(), table.shape[0], r0, n_rows, local_base, z_lo, z_hi,
         stride, expand.bit_length() - 1, budget, int(bool(wide_local)),
-        int(bool(ref_weights)), _cuda.stream_ptr(dev),
+        int(bool(ref_weights)), int(bool(textured)), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "fused_pass")
     _cuda.LAUNCHES["fused_pass"] += 1

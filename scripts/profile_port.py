@@ -1,12 +1,12 @@
 """Where the port's time goes on one CUDA card: a torch.profiler trace of one
 warm `stream_slabs` run of chip_smoke.py's 2M-triangle sphere at 1024^3,
-untextured (BLEND, K1 passes), textured (MAX, K4 passes with one 4096^2
-REPEAT texture), untextured through the merge-runs route (BLEND, K6) and
-supersampled from 2048^3 (MAX), outputs kept on the device; and of ten
-calls of K5 and of K6 alone at chip_smoke.py's timing shapes (phases 10 and
-13).
+untextured (BLEND, K1 passes), textured (MAX, K1's textured passes with
+one 4096^2 REPEAT texture), untextured through the merge-runs route (BLEND,
+K6) and supersampled from 2048^3 (MAX), outputs kept on the device; and of
+ten calls of K1, K4, K5 and K6 alone at chip_smoke.py's timing shapes
+(phases 2, 9, 10 and 13).
 
-    python3 scripts/profile_port.py [--top 15] [--paths untextured,merge-runs]
+    python3 scripts/profile_port.py [--top 15] [--paths untextured,k1,k4]
 
 Prints, per path, the wall time of the profiled run, the device's busy time
 (the union of its kernel intervals) and idle share, and the kernels with the
@@ -64,6 +64,25 @@ def by_kernel(prof, top):
         print(f"  {a.device_time_total / 1e3:9.3f} ms  {a.count:5d}x  {a.key[:90]}")
 
 
+def pass_schedule(table, aabb, stride):
+    """The passes the engine runs on the sphere table at `stride`: how many
+    at each budget, and the slots in their rows' AABBs."""
+    from collections import Counter
+
+    from obj2voxel_tpu_torch.engine import MAX_PASS_BUDGET, _schedule_passes
+    from obj2voxel_tpu_torch.ops.plan_device import plan_mesh_device
+
+    _, segs = plan_mesh_device(table, aabb[0].shape[0], stride, stride,
+                               4 * MAX_PASS_BUDGET, group=8)
+    slabs = {}
+    for seg in segs:
+        slabs.setdefault((seg.z_lo, seg.z_hi), []).append(seg)
+    passes = [p for ss in slabs.values() for p in _schedule_passes(ss, MAX_PASS_BUDGET)]
+    budgets = Counter(p[1] for p in passes)
+    return (f"{len(passes)} passes, {sum(b * n for b, n in budgets.items())} "
+            f"slots; by budget {dict(sorted(budgets.items()))}")
+
+
 def profile(name, table, pool, aabb, is_blend, top, **kw):
     (voxels, _), prof, wall, busy = traced(lambda: cs.drive_sphere(
         table, pool, aabb, is_blend, lambda xyz, argb: argb.view(torch.int32).sum(),
@@ -101,7 +120,17 @@ def k5_input():
     return torch.from_numpy(keys).cuda(), vals
 
 
-PATHS = ("untextured", "merge-runs", "supersampled", "textured", "k5", "k6")
+def k1_input(table, aabb):
+    """Phase 2's timing input: the middle 2^21-slot pass of the plan-ordered
+    sphere table at expand 8, as fused_pass's arguments."""
+    ordered, r0, z_lo, z_hi = cs.sphere_pass(table, aabb, lambda n: n // 2)
+    n_rows = min(cs.BUDGET // 8, ordered.shape[0] - r0)
+    return ((ordered, r0, n_rows, 0, z_lo, z_hi, cs.SPHERE_RES),
+            dict(expand=8, budget=cs.BUDGET, wide_local=False))
+
+
+PATHS = ("untextured", "merge-runs", "supersampled", "textured", "k1", "k4",
+         "k5", "k6")
 
 
 def main():
@@ -121,6 +150,24 @@ def main():
     print(f"[gpu] {cs.gpu_info()}", flush=True)
     table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, cs.SPHERE_RES)
     table = pt.table_from_numpy(table_np, "cuda")
+    if "k1" in paths or "k4" in paths:
+        tex_np, tex_aabb = cs.sphere_table(cs.SPHERE_TRIS, cs.SPHERE_RES,
+                                           textured=True)
+        tex_args, kw = k1_input(torch.from_numpy(tex_np).cuda(), tex_aabb)
+    if "k1" in paths:
+        from obj2voxel_tpu_torch.ops.pass_fused import fused_pass
+
+        args, kw = k1_input(table, aabb)
+        profile_calls("K1 fused_pass, 2^21 slots at expand 8",
+                      lambda: fused_pass(*args, **kw), top)
+        profile_calls("K1 fused_pass textured, the same pass of the textured table",
+                      lambda: fused_pass(*tex_args, textured=True, **kw), top)
+    if "k4" in paths:
+        from obj2voxel_tpu_torch.ops.clip_pallas import clip_pairs, pass_pairs
+
+        tri, vox, *_ = pass_pairs(tex_args[0].T.contiguous(), *tex_args[1:], **kw)
+        profile_calls("K4 clip_pairs, the same pass's 2^21 pairs, textured",
+                      lambda: clip_pairs(tri, vox), top)
     if "k5" in paths:
         from obj2voxel_tpu_torch.ops.pack_pallas import pack_channels
 
@@ -135,6 +182,7 @@ def main():
                       f"{keys.numel()} rows)", lambda: merge_runs(keys, chans, offsets),
                       top)
     if "untextured" in paths:
+        print(f"[schedule] {pass_schedule(table, aabb, cs.SPHERE_RES)}", flush=True)
         profile("untextured BLEND", table, None, aabb, True, top)
     if "merge-runs" in paths:
         profile("merge-runs BLEND", table, None, aabb, True, top, merge_runs=True)
