@@ -15,7 +15,8 @@ code, and the closed forms.
 
 Phases: 1 build (with ptxas's registers, stack frame, spills and shared
 memory of every kernel); 2 K1 (and its input-area and textured variants),
-3 K2, 4 K3, 9 K4, 10 K5, 13 K6 against their plain versions; 5 untextured
+3 K2, 4 K3, 16 their fusion combine_pack, 9 K4, 10 K5, 13 K6 against
+their plain versions; 5 untextured
 end to end (with the merge-runs route, supersampling 2 and input-area
 weights) and 11 textured, card against CPU; 6 the unit-cube closed forms;
 7 untextured, 12 textured, 14 merge-runs and 15 supersampled real size; 8
@@ -33,6 +34,7 @@ clip's operations are counted on this run's pairs (`clip_flops`).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -52,6 +54,12 @@ SPHERE_RES = 1024
 # multiply-adds into FMAs, gives 4,936,300.  The textured table is the same
 # geometry, and K4's area is K1's, so it gives the same voxel set.
 SPHERE_VOXELS = 4_936_255
+# Phase 12's textured sphere through `Instance.set_input_soup`: the host
+# transform and subdivision build another table, whose VL32 output the JAX
+# package op by op and the port give byte for byte alike on the CPU
+# (scripts/instance_sphere_count.py): its count and the bytes' sha256.
+INSTANCE_SPHERE_VOXELS = 4_936_254
+INSTANCE_SPHERE_SHA256 = "d278e83022e97f7375fa04d4ac9ec8322ac8eac08a0f2a45f8716e2501cb7271"
 BUDGET = 1 << 21
 STREAM = 1 << 22
 INV = (1 << 31) - 1
@@ -64,10 +72,13 @@ FP32_OPS_PER_S = 67e12
 KERNELS = {
     "fused_pass": ("obj2voxel_tpu_torch/csrc/fused_pass.cu",
                    "obj2voxel_tpu/ops/pass_fused.py:251"),
-    "segment_combine": ("obj2voxel_tpu_torch/csrc/segment_combine.cu",
+    "segment_combine": ("obj2voxel_tpu_torch/csrc/reduce_by_key.cu",
                         "obj2voxel_tpu/ops/combine_pallas.py:126"),
-    "pack_exact": ("obj2voxel_tpu_torch/csrc/pack_exact.cu",
+    "pack_exact": ("obj2voxel_tpu_torch/csrc/reduce_by_key.cu",
                    "obj2voxel_tpu/ops/pack_pallas.py:285"),
+    # K2 then K3 in one pass: the slab merge's combine
+    "combine_pack": ("obj2voxel_tpu_torch/csrc/reduce_by_key.cu",
+                     "obj2voxel_tpu/ops/combine.py:135"),
     "clip_pairs": ("obj2voxel_tpu_torch/csrc/clip_pairs.cu",
                    "obj2voxel_tpu/ops/clip_pallas.py:64"),
     "pack_channels": ("obj2voxel_tpu_torch/csrc/pack_channels.cu",
@@ -77,14 +88,16 @@ KERNELS = {
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
-    "untextured": ("fused_pass", "segment_combine", "pack_exact"),
-    "textured": ("fused_pass", "segment_combine", "pack_exact"),
-    "merge_runs": ("fused_pass", "merge_runs", "segment_combine", "pack_exact"),
-    "supersampled": ("fused_pass", "segment_combine", "pack_exact"),
+    "untextured": ("fused_pass", "combine_pack"),
+    "textured": ("fused_pass", "combine_pack"),
+    "merge_runs": ("fused_pass", "merge_runs", "combine_pack"),
+    "supersampled": ("fused_pass", "combine_pack"),
 }
-# the kernels a main path must not launch: the textured passes clip in K1
-PATH_ABSENT = {"textured": ("clip_pairs",)}
-ALL_PHASES = set(range(1, 16))
+# the kernels a main path must not launch: every merge runs K2 and K3 as
+# combine_pack, and the textured passes clip in K1
+PATH_ABSENT = {path: ("segment_combine", "pack_exact") for path in PATH_KERNELS}
+PATH_ABSENT["textured"] += ("clip_pairs",)
+ALL_PHASES = set(range(1, 17))
 
 
 def fail(msg):
@@ -209,15 +222,21 @@ def sphere_table(n_tris, res, textured=False):
     return table, (vmin, vmax)
 
 
+def palette_texels(seed=12):
+    """(TEXTURE_SIDE^2 uint32 texels drawn from PALETTE opaque colors, the
+    palette uint32)."""
+    rng = np.random.default_rng(seed)
+    palette = (0xFF000000 | rng.integers(0, 1 << 24, PALETTE)).astype(np.uint32)
+    return palette[rng.integers(0, PALETTE, (TEXTURE_SIDE, TEXTURE_SIDE))], palette
+
+
 def palette_pool(seed=12):
-    """One TEXTURE_SIDE^2 REPEAT texture whose texels are drawn from PALETTE
-    opaque colors; returns (TexturePool, palette uint32)."""
+    """One REPEAT texture of `palette_texels`; returns (TexturePool, palette
+    uint32)."""
     from obj2voxel_tpu_torch import TexturePool
     from obj2voxel_tpu_torch.constants import UV_WRAP
 
-    rng = np.random.default_rng(seed)
-    palette = (0xFF000000 | rng.integers(0, 1 << 24, PALETTE)).astype(np.uint32)
-    texels = palette[rng.integers(0, PALETTE, (TEXTURE_SIDE, TEXTURE_SIDE))]
+    texels, palette = palette_texels(seed)
     pool = TexturePool()
     pool.add(texels, UV_WRAP)
     return pool, palette
@@ -391,20 +410,30 @@ def k2_streams(rng):
     }
 
 
+def tie_chans(rng, n):
+    """(w, wr, wg, wb) on the card, with quantized weights that make MAX
+    ties common."""
+    w = torch.from_numpy(rng.integers(1, 5, n).astype(np.float32) / 4).cuda()
+    return (w, *(torch.from_numpy(rng.random(n, dtype=np.float32)).cuda() * w
+                 for _ in range(3)))
+
+
+def k2_inputs(seed=2):
+    """Phase 3's inputs on the card: (name, keys, (w, wr, wg, wb)) for each
+    of `k2_streams`."""
+    rng = np.random.default_rng(seed)
+    for name, keys_np in k2_streams(rng).items():
+        yield name, torch.from_numpy(keys_np).cuda(), tie_chans(rng, keys_np.size)
+
+
 def phase_k2(stats):
     from obj2voxel_tpu_torch.ops.combine_pallas import (
         segment_combine, segment_combine_ref,
     )
 
     t0 = time.perf_counter()
-    rng = np.random.default_rng(2)
     err, details = 0.0, []
-    for name, keys_np in k2_streams(rng).items():
-        keys = torch.from_numpy(keys_np).cuda()
-        # quantized weights make MAX ties common
-        w = torch.from_numpy(rng.integers(1, 5, STREAM).astype(np.float32) / 4).cuda()
-        rgb = [torch.from_numpy(rng.random(STREAM, dtype=np.float32)).cuda() * w
-               for _ in range(3)]
+    for name, keys, (w, *rgb) in k2_inputs():
         for blend in (False, True):
             got = segment_combine(keys, w, *rgb, blend)
             want = segment_combine_ref(keys, w, *rgb, blend)
@@ -467,9 +496,10 @@ def pack_phase(stats, name, kernel, plain, label):
                            f"{ms / lib_ms:.3f}")
             stats[name].update(ms=ms, library_ms=lib_ms,
                                plain_ms=cuda_ms(lambda: plain(keys, vals)))
-            # every row read, the live rows (K5: up to the padded count)
-            # written, and the count
-            bound(stats, name, STREAM * 20 + int(gc.item()) * 20 + 4, 0)
+            # every row read, and every row written: the live rows (K5: up
+            # to the padded count), the (INVALID, 0) fill past the count,
+            # and the count
+            bound(stats, name, STREAM * 40 + 4, 0)
     stats[name]["max_abs_err"] = 0.0
     phase(label, t0, " ".join(details))
 
@@ -479,6 +509,108 @@ def phase_k3(stats):
 
     pack_phase(stats, "pack_exact", pack_exact, pack_exact_ref,
                "4 K3 pack_exact vs plain")
+
+
+def rbk_streams(rng):
+    """The cases a chained reduce-by-key gets wrong, as (name, sorted keys):
+    runs ending exactly at tile edges (and one row either side), one run
+    crossing many tiles, one tile alone, every tail in the last tile (a run
+    over all the tiles before it), and 2^24 rows (4096 tiles, many waves of
+    look-back)."""
+    from obj2voxel_tpu_torch.ops.reduce_by_key import RBK_TILE as T
+
+    def runs(lengths, n):
+        keys = np.repeat(np.arange(len(lengths), dtype=np.int64) * 3, lengths)[:n]
+        return np.pad(keys, (0, n - keys.size), constant_values=INV).astype(np.int32)
+
+    short = rng.integers(1, 50, STREAM)
+    pattern = [T, T // 2, T // 2 - 1, 1, 1, T - 1, 3 * T + 1, T - 1]
+    last = np.full(STREAM, 5, np.int32)
+    last[-1000:] = np.sort(rng.integers(6, 100, 1000))
+    big = rng.integers(1, 64, 1 << 24)
+    big_keys = runs(big, 1 << 24)
+    big_keys[-(1 << 20):] = INV
+    return {
+        "runs at tile edges": runs(np.tile(pattern, STREAM // T), STREAM),
+        "a run over 300 tiles": runs(np.concatenate(
+            [short[:20_000], [300 * T + 7], short[20_000:]]), STREAM),
+        "one tile": np.sort(rng.integers(0, 50, T)).astype(np.int32),
+        "tails only in the last tile": last,
+        "2^24 rows": big_keys,
+    }
+
+
+def phase_rbk(stats):
+    """combine_pack (K2 then K3 in one pass) against its plain version on
+    phase 3's streams and on the chained scan's own cases, BLEND and MAX,
+    each called twice on one input; then timed on the sphere's real merge
+    input beside the plain chain and the K2 -> K3 instances."""
+    from obj2voxel_tpu_torch.ops.combine import sort_channels
+    from obj2voxel_tpu_torch.ops.combine_pallas import (
+        combine_pack, combine_pack_ref, segment_combine,
+    )
+    from obj2voxel_tpu_torch.ops.pack_pallas import pack_exact
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    cases = [(name, keys, chans) for name, keys, chans in k2_inputs()]
+    cases += [(name, torch.from_numpy(k).cuda(), tie_chans(rng, k.size))
+              for name, k in rbk_streams(rng).items()]
+    err, details = 0.0, []
+    for name, keys, chans in cases:
+        for blend in (False, True):
+            wk, wv, wc = combine_pack_ref(keys, chans, blend)
+            for call in ("first", "second"):
+                # a second call on the same input must not read the first's flags
+                gk, gv, gc = combine_pack(keys, chans, blend)
+                what = f"combine_pack {name} blend={blend}, {call} call"
+                if not (torch.equal(gc, wc) and torch.equal(gk, wk)):
+                    fail(f"{what}: keys or count differ from the plain version")
+                for g, x in zip(gv, wv):
+                    if blend:
+                        if not torch.allclose(g, x, rtol=1e-5, atol=1e-6):
+                            fail(f"{what}: sums beyond rtol 1e-5")
+                        err = max(err, float((g - x).abs().max()))
+                    elif not torch.equal(g, x):
+                        fail(f"{what}: values differ")
+        details.append(f"{name}: {keys.numel()} rows, count {int(wc.item())}")
+    del cases
+
+    table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES)
+    keys, chans = sort_channels(*sphere_slab_runs(torch.from_numpy(table_np).cuda(),
+                                                  aabb)[:2])
+    wk, wv, wc = combine_pack_ref(keys, chans, True)
+    gk, gv, gc = combine_pack(keys, chans, True)
+    if not (torch.equal(gc, wc) and torch.equal(gk, wk) and all(
+            torch.allclose(g, x, rtol=1e-5, atol=1e-6) for g, x in zip(gv, wv))):
+        fail("combine_pack sphere slab merge: differs from the plain version")
+    err = max([err] + [float((g - x).abs().max()) for g, x in zip(gv, wv)])
+    live = keys != INV
+    data = torch.stack(chans, dim=1)[live]
+    lengths = torch.unique_consecutive(keys[live], return_counts=True)[1]
+
+    def chain():
+        tk, *tv = segment_combine(keys, *chans, True)
+        return pack_exact(tk, tuple(tv))
+
+    ms, lib_ms, turns = in_turns(
+        lambda: combine_pack(keys, chans, True),
+        lambda: torch.segment_reduce(data, "sum", lengths=lengths))
+    plain_ms = cuda_ms(lambda: combine_pack_ref(keys, chans, True))
+    chain_ms = cuda_ms(chain)
+    stats["combine_pack"].update(ms=ms, library_ms=lib_ms, plain_ms=plain_ms,
+                                 max_abs_err=err)
+    # 20 B a row read; 20 B a row written (the unique rows, then the
+    # (INVALID, 0) fill) and the count; 4 additions a live row
+    bound(stats, "combine_pack", keys.numel() * 40 + 4, 4 * int(live.sum()))
+    details.append(
+        f"sphere slab merge {keys.numel()} rows -> {int(gc.item())} voxels, in "
+        f"turns (combine_pack, segment_reduce, segment_reduce, combine_pack) "
+        f"{[round(t, 4) for t in turns]} ms: combine_pack {ms:.4f} ms, "
+        f"segment_reduce {lib_ms:.4f} ms; K2 -> K3 instances {chain_ms:.4f} ms; "
+        f"plain chain {plain_ms:.4f} ms; bound "
+        f"{stats['combine_pack']['bound_ms']:.4f} ms")
+    phase("16 combine_pack vs plain", t0, "; ".join(details))
 
 
 def k5_streams(rng):
@@ -957,9 +1089,10 @@ def real_size(name, table, pool, aabb, is_blend, check, info, want=SPHERE_VOXELS
     for kernel in PATH_ABSENT.get(name, ()):
         if launches[kernel]:
             fail(f"{name} main path launched {kernel} {launches[kernel]} times")
-    if launches["pack_exact"] > launches["segment_combine"]:
-        # each slab merge runs K2 then K3 once; more K3 means K3 per pass
-        fail(f"{name} main path launched K3 per pass: {launches}")
+    if launches["combine_pack"] >= launches["fused_pass"]:
+        # a slab merge runs combine_pack once or twice over its passes; as
+        # many as the passes means a compaction per pass
+        fail(f"{name} main path compacted per pass: {launches}")
     times = timed_runs(lambda: drive_sphere(table, pool, aabb, is_blend, check, **kw),
                        (voxels, checked), f"{name} sphere")
     med = sorted(times)[1]
@@ -1082,8 +1215,8 @@ def phase_real_size_textured(info):
         fail(f"textured sphere: {bad} voxels off the palette")
     del table, pool_dev
 
-    # the same textured sphere through the user's entry point (host
-    # transform and subdivision make another table: no count gate)
+    # the same textured sphere through the user's entry point: the bytes
+    # of the CPU runs of both packages
     from obj2voxel_tpu_torch.constants import TRI_TEXTURED
     from obj2voxel_tpu_torch.utils.meshes import make_sphere_mesh
 
@@ -1099,11 +1232,16 @@ def phase_real_size_textured(info):
     if inst.voxelize() != pt.ERR_OK:
         fail("Instance on the textured sphere failed")
     inst_s = time.perf_counter() - t
-    n_inst = len(inst.get_output_memory()) // 16
+    data = inst.get_output_memory()
+    n_inst = len(data) // 16
+    if n_inst != INSTANCE_SPHERE_VOXELS:
+        fail(f"Instance textured sphere: {n_inst} voxels, want {INSTANCE_SPHERE_VOXELS}")
+    if hashlib.sha256(data).hexdigest() != INSTANCE_SPHERE_SHA256:
+        fail("Instance textured sphere: VL32 bytes differ from the CPU runs'")
     phase("12 real size textured (2M-tri sphere, 4096^2 REPEAT texture @ "
           "1024^3 MAX)", t0, f"{detail}; all ARGB on the {PALETTE}-color "
           f"palette; Instance.set_input_soup -> VL32 in memory: {n_inst} voxels "
-          f"in {inst_s:.3f} s")
+          f"in {inst_s:.3f} s, bytes equal to the CPU runs'")
     return launches
 
 
@@ -1131,8 +1269,8 @@ def main():
     phase("1 build", t0, f"nvcc {_cuda.BUILD_SECONDS} s -> {_cuda.library_path().name}")
 
     stats = {name: {} for name in (*KERNELS, "fused_pass_textured")}
-    for num, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3), (9, phase_k4),
-                    (10, phase_k5), (13, phase_k6)):
+    for num, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3), (16, phase_rbk),
+                    (9, phase_k4), (10, phase_k5), (13, phase_k6)):
         if want & {num, 8}:
             fn(stats)
     if 5 in want:

@@ -4,9 +4,9 @@ The port of obj2voxel_tpu/engine.py's single-device path:
 
   host:   bounds -> transform -> subdivide -> (N, 24) triangle table
   device: plan (ops/plan_device.py) -> one plan-order gather -> per-bucket
-          passes -> per-slab merges (stable key sort -> K2 segmented
-          combine -> K3 exact compaction) -> finalize to (xyz, ARGB) per
-          z-slab
+          passes -> per-slab merges (stable key sort -> `combine_pack`:
+          K2's segmented combine and K3's exact compaction in one pass)
+          -> finalize to (xyz, ARGB) per z-slab
 
 A pass is one of two shapes, chosen per mesh as the JAX package chooses
 (obj2voxel_tpu/engine.py:1250-1251, :503): untextured meshes take K1
@@ -25,7 +25,7 @@ full pair stream, so MAX ties go to the earliest pair.  With `merge_runs`
 (or O2V_MERGE_RUNS=1; off by default, as in the JAX package) each pass's
 live pairs are first stable-sorted by key, and a slab of 2 to 32 runs
 merges them with K6 instead of sorting the concatenation; a single run goes
-straight to K2 and K3, more than 32 take the sort.  Equal keys arrive in
+straight to `combine_pack`, more than 32 take the sort.  Equal keys arrive in
 (pass, slot) order either way, so the two routes give the same bytes.
 
 2x supersampling (`do_down`) samples at twice the resolution and halves
@@ -58,9 +58,8 @@ from .ops.color import sample_pair_colors_uv, upload_pool
 from .ops.combine import (
     downscale_keys, finalize_colors, pack_argb, sort_channels,
 )
-from .ops.combine_pallas import segment_combine
+from .ops.combine_pallas import combine_pack
 from .ops.merge_pallas import MAX_RUNS, merge_runs as merge_sorted_runs, plan_runs
-from .ops.pack_pallas import pack_exact
 from .ops.pass_fused import fused_pass
 from .ops.plan import plan_mesh
 from .ops.plan_device import gather_ordered, plan_mesh_device
@@ -183,15 +182,14 @@ def _textured_pass(table, pool, r0, n_rows, local_base, z_lo, z_hi, stride,
 
 
 def _combine_presorted(sorted_keys, chans, is_blend):
-    """K2 -> K3 over a key-sorted stream: compacted unique (keys, chans,
-    count (1,)) in key order."""
-    tk, *tv = segment_combine(sorted_keys, *chans, is_blend)
-    return pack_exact(tk, tuple(tv))
+    """`combine_pack` (K2 and K3 in one pass) over a key-sorted stream:
+    compacted unique (keys, chans, count (1,)) in key order."""
+    return combine_pack(sorted_keys, chans, is_blend)
 
 
 def _merge_keys(keys, chans, is_blend):
-    """Stable sort -> K2 -> K3: compacted unique (keys, chans, count (1,))
-    in slab-local key order."""
+    """Stable sort -> `combine_pack`: compacted unique (keys, chans, count
+    (1,)) in slab-local key order."""
     return _combine_presorted(*sort_channels(keys, chans), is_blend)
 
 

@@ -6,9 +6,9 @@ w*b).  BLEND sums a run's channels and divides once at the end; MAX keeps
 the entry with the strictly greater weight, the earlier entry winning ties,
 so every sort here is stable.
 
-`combine_sorted` is the plain segmented combine: K2's plain version
-(ops/combine_pallas.py) followed by K3's (ops/pack_pallas.py).  The engine's
-merges call the kernel wrappers instead, which launch the CUDA kernels for
+`combine_sorted` is the plain segmented combine: `combine_pack`'s plain
+version (ops/combine_pallas.py), K2's followed by K3's.  The engine's merges
+call the `combine_pack` wrapper instead, which launches the CUDA kernel for
 CUDA tensors.
 """
 
@@ -17,8 +17,7 @@ from __future__ import annotations
 import torch
 
 from ._cuda import INVALID_KEY
-from .combine_pallas import segment_combine_ref
-from .pack_pallas import pack_exact_ref
+from .combine_pallas import combine_pack_ref
 
 __all__ = ["INVALID_KEY", "combine_sorted", "downscale_keys", "finalize_colors",
            "pack_argb", "premultiply", "sort_channels"]
@@ -41,8 +40,7 @@ def combine_sorted(sorted_keys, chans, is_blend):
     Returns (keys (P,), chans 4-tuple, count (1,) int32): the first `count`
     rows are the unique combined voxels in key order; the rest is
     (INVALID_KEY, 0)."""
-    tk, *tv = segment_combine_ref(sorted_keys, *chans, is_blend)
-    return pack_exact_ref(tk, tuple(tv))
+    return combine_pack_ref(sorted_keys, chans, is_blend)
 
 
 def downscale_keys(keys, stride):

@@ -1,14 +1,20 @@
-"""K2: tail-marked segmented combine (csrc/segment_combine.cu).
+"""K2 `segment_combine` and the fused `combine_pack`, two instances of the
+single-pass reduce-by-key csrc/reduce_by_key.cu (ops/reduce_by_key.py).
 
-The counterpart of obj2voxel_tpu/ops/combine_pallas.py
+`segment_combine` is the counterpart of obj2voxel_tpu/ops/combine_pallas.py
 `segment_combine_pallas`.  Over a key-sorted premultiplied stream, each run
 of equal keys is reduced: BLEND sums the channels, MAX keeps the element
 with the strictly greatest w (the earlier element wins ties).  The run's
 last slot keeps its key and the combined value; every other slot becomes
 (INVALID, 0).
 
-`segment_combine` takes the plain version for CPU tensors and launches the
-CUDA kernel for CUDA tensors; `segment_combine_ref` is the plain version.
+`combine_pack` is the counterpart of obj2voxel_tpu/ops/combine.py
+`_combine_sorted_kernel` (K2, then K3, then the INVALID/zero tail): the
+combined runs compacted in key order with their count, in one pass.  Every
+slab merge of the engine runs it.
+
+Each wrapper takes its plain version (`*_ref`) for CPU tensors and launches
+the CUDA kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -16,9 +22,8 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-
-#: rows per scan tile (csrc/segment_combine.cu SC_TILE)
-SC_TILE = 512
+from .pack_pallas import pack_exact_ref
+from .reduce_by_key import check_rows, reduce_by_key
 
 
 def segment_combine_ref(sorted_keys, w, r, g, b, is_blend):
@@ -63,32 +68,28 @@ def segment_combine(sorted_keys, w, r, g, b, is_blend):
     """Tail-marked combine of a key-sorted stream; returns (keys', w', r',
     g', b') with the input's length."""
     chans = (w, r, g, b)
-    if sorted_keys.dtype != torch.int32 or sorted_keys.dim() != 1:
-        raise ValueError("segment_combine: keys must be a 1-D int32 tensor")
-    for c in chans:
-        if c.dtype != torch.float32 or c.shape != sorted_keys.shape:
-            raise ValueError("segment_combine: channels must be float32 like keys")
+    check_rows("segment_combine", sorted_keys, chans)
     if sorted_keys.device.type == "cpu":
         return segment_combine_ref(sorted_keys, w, r, g, b, is_blend)
-    dev = _cuda.require_cuda("segment_combine", sorted_keys, *chans)
-    n = sorted_keys.numel()
-    if n >= 1 << 31:
-        raise ValueError("segment_combine: stream longer than int32 indexing")
-    out_k = torch.empty_like(sorted_keys)
-    outs = tuple(torch.empty_like(c) for c in chans)
-    if n == 0:
-        return (out_k,) + outs
-    n_tiles = -(-n // SC_TILE)
-    key_first = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    key_last = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    agg = torch.empty(4 * n_tiles, dtype=torch.float32, device=dev)
-    carry = torch.empty(4 * n_tiles, dtype=torch.float32, device=dev)
-    err = _cuda.lib().o2v_segment_combine(
-        sorted_keys.data_ptr(), *(c.data_ptr() for c in chans),
-        out_k.data_ptr(), *(o.data_ptr() for o in outs),
-        key_first.data_ptr(), key_last.data_ptr(), agg.data_ptr(),
-        carry.data_ptr(), n, int(bool(is_blend)), _cuda.stream_ptr(dev),
-    )
-    _cuda.check(err, "segment_combine")
-    _cuda.LAUNCHES["segment_combine"] += 1
+    out_k, outs, _ = reduce_by_key("segment_combine", sorted_keys, chans,
+                                   combine=True, compact=False, is_blend=is_blend)
     return (out_k,) + outs
+
+
+def combine_pack_ref(sorted_keys, chans, is_blend):
+    """Plain version: K2's plain version, then K3's."""
+    tk, *tv = segment_combine_ref(sorted_keys, *chans, is_blend)
+    return pack_exact_ref(tk, tuple(tv))
+
+
+def combine_pack(sorted_keys, chans, is_blend):
+    """Combine a key-sorted premultiplied stream into its unique rows.
+
+    Returns (keys (P,), chans 4-tuple, count (1,) int32 on the same
+    device): the first `count` rows are the combined voxels in key order,
+    the rest (INVALID, 0)."""
+    check_rows("combine_pack", sorted_keys, chans)
+    if sorted_keys.device.type == "cpu":
+        return combine_pack_ref(sorted_keys, chans, is_blend)
+    return reduce_by_key("combine_pack", sorted_keys, chans, combine=True,
+                         compact=True, is_blend=is_blend)

@@ -1,9 +1,10 @@
 """Order-preserving compaction of (key, 4 channels) streams.
 
-K3 `pack_exact` (csrc/pack_exact.cu), the counterpart of
-obj2voxel_tpu/ops/pack_pallas.py `pack_exact_pallas`: rows with key !=
-INVALID move to a dense prefix in input order, and the count comes back as a
-(1,) int32 tensor.
+K3 `pack_exact`, the counterpart of obj2voxel_tpu/ops/pack_pallas.py
+`pack_exact_pallas`: rows with key != INVALID move to a dense prefix in
+input order, and the count comes back as a (1,) int32 tensor.  It is the
+compact-only instance of the reduce-by-key csrc/reduce_by_key.cu
+(ops/reduce_by_key.py).
 
 K5 `pack_channels` (csrc/pack_channels.cu), the counterpart of
 `pack_channels_pallas`: the same per 8192-slot block, each block's live rows
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .reduce_by_key import check_rows, reduce_by_key
 
 #: Slots per block of `pack_channels`, and the row granularity of its offsets.
 PACK_BLOCK = 8192
@@ -43,45 +45,15 @@ def pack_exact_ref(keys, vals):
     return out_k, tuple(outs), count
 
 
-def _check(keys, vals):
-    if keys.dtype != torch.int32 or keys.dim() != 1:
-        raise ValueError("pack_exact: keys must be a 1-D int32 tensor")
-    if len(vals) != 4:
-        raise ValueError("pack_exact: expected 4 value channels")
-    for v in vals:
-        if v.dtype != torch.float32 or v.shape != keys.shape:
-            raise ValueError("pack_exact: channels must be float32 like keys")
-
-
 def pack_exact(keys, vals):
     """Compact (keys, 4 float32 channels) to an exactly dense live prefix.
 
     Returns (keys', vals' 4-tuple, count (1,) int32 tensor on the same
     device); rows past count are (INVALID, 0)."""
-    _check(keys, vals)
+    check_rows("pack_exact", keys, vals)
     if keys.device.type == "cpu":
         return pack_exact_ref(keys, vals)
-    dev = _cuda.require_cuda("pack_exact", keys, *vals)
-    n = keys.numel()
-    if n >= 1 << 31:
-        raise ValueError("pack_exact: stream longer than int32 indexing")
-    out_k = torch.empty_like(keys)
-    outs = tuple(torch.empty_like(v) for v in vals)
-    count = torch.zeros(1, dtype=torch.int32, device=dev)
-    if n == 0:
-        return out_k, outs, count
-    n_tiles = -(-n // _cuda.COMPACT_TILE)
-    tile_counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    tile_offsets = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    err = _cuda.lib().o2v_pack_exact(
-        keys.data_ptr(), *(v.data_ptr() for v in vals),
-        out_k.data_ptr(), *(o.data_ptr() for o in outs),
-        count.data_ptr(), tile_counts.data_ptr(), tile_offsets.data_ptr(),
-        n, _cuda.stream_ptr(dev),
-    )
-    _cuda.check(err, "pack_exact")
-    _cuda.LAUNCHES["pack_exact"] += 1
-    return out_k, outs, count
+    return reduce_by_key("pack_exact", keys, vals, combine=False, compact=True)
 
 
 def pack_channels_ref(keys, vals):
@@ -111,7 +83,7 @@ def pack_channels(keys, vals):
 
     Returns (keys', vals' 4-tuple, count (1,) int32 tensor on the same
     device); rows past count are (INVALID, 0)."""
-    _check(keys, vals)
+    check_rows("pack_channels", keys, vals)
     n = keys.numel()
     if n % PACK_BLOCK:
         raise ValueError(f"pack_channels: length {n} is not a multiple of {PACK_BLOCK}")

@@ -4,7 +4,9 @@ untextured (BLEND, K1 passes), textured (MAX, K1's textured passes with
 one 4096^2 REPEAT texture), untextured through the merge-runs route (BLEND,
 K6) and supersampled from 2048^3 (MAX), outputs kept on the device; and of
 ten calls of K1, K4, K5 and K6 alone at chip_smoke.py's timing shapes
-(phases 2, 9, 10 and 13).
+(phases 2, 9, 10 and 13), and of the slab merge's combine (`--paths
+combine`: the fused `combine_pack`, K2 and K3 alone, and the engine's call)
+on phase 3's stream and on the sphere's real merge input.
 
     python3 scripts/profile_port.py [--top 15] [--paths untextured,k1,k4]
 
@@ -129,8 +131,41 @@ def k1_input(table, aabb):
             dict(expand=8, budget=cs.BUDGET, wide_local=False))
 
 
+def profile_combine(table, aabb, top):
+    """The slab merge's combine on phase 3's `runs` stream and on the sphere
+    slab's real merge input (the key-sorted slab with the most passes):
+    CUDA-event ms and a trace of ten calls each of the engine's
+    `_combine_presorted`, K2 alone, K3 alone on K2's output, and
+    `combine_pack` alone (absent before it existed, so the same script
+    measures a parent tree too)."""
+    from obj2voxel_tpu_torch.engine import _combine_presorted
+    from obj2voxel_tpu_torch.ops import combine_pallas
+    from obj2voxel_tpu_torch.ops.combine import sort_channels
+    from obj2voxel_tpu_torch.ops.pack_pallas import pack_exact
+
+    _, keys, chans = next(cs.k2_inputs())
+    streams = {"phase 3 runs": (keys, chans),
+               "sphere slab merge": sort_channels(*cs.sphere_slab_runs(table, aabb)[:2])}
+    fused = getattr(combine_pallas, "combine_pack", None)
+    for what, (keys, chans) in streams.items():
+        tk, *tv = combine_pallas.segment_combine(keys, *chans, True)
+        calls = {
+            "_combine_presorted": lambda: _combine_presorted(keys, chans, True),
+            "K2 segment_combine": lambda: combine_pallas.segment_combine(
+                keys, *chans, True),
+            "K3 pack_exact on K2's output": lambda: pack_exact(tk, tuple(tv)),
+        }
+        if fused is not None:
+            calls["combine_pack"] = lambda: fused(keys, chans, True)
+        for name, fn in calls.items():
+            label = f"{what} ({keys.numel()} rows, BLEND): {name}"
+            print(f"[{label}] CUDA events {cs.cuda_ms(fn):.4f} ms a call (mean of "
+                  f"10)", flush=True)
+            profile_calls(label, fn, top)
+
+
 PATHS = ("untextured", "merge-runs", "supersampled", "textured", "k1", "k4",
-         "k5", "k6")
+         "k5", "k6", "combine")
 
 
 def main():
@@ -181,6 +216,8 @@ def main():
         profile_calls(f"K6 merge_runs, sphere slab ({len(offsets) - 1} runs, "
                       f"{keys.numel()} rows)", lambda: merge_runs(keys, chans, offsets),
                       top)
+    if "combine" in paths:
+        profile_combine(table, aabb, top)
     if "untextured" in paths:
         print(f"[schedule] {pass_schedule(table, aabb, cs.SPHERE_RES)}", flush=True)
         profile("untextured BLEND", table, None, aabb, True, top)

@@ -1,4 +1,5 @@
-"""K2's plain version and the port's combine ops against the JAX package.
+"""K2's and combine_pack's plain versions and the port's combine ops
+against the JAX package.
 
 The JAX oracle is obj2voxel_tpu.ops.combine.combine_sorted (stable sort +
 associative scan + tail compaction), the same oracle the Pallas kernel is
@@ -14,10 +15,13 @@ import jax.numpy as jnp
 
 from obj2voxel_tpu.ops import combine as jcomb
 from obj2voxel_tpu_torch.ops import combine as tcomb
+from obj2voxel_tpu_torch.engine import _combine_presorted
 from obj2voxel_tpu_torch.ops.combine_pallas import (
+    combine_pack,
     segment_combine,
     segment_combine_ref,
 )
+from obj2voxel_tpu_torch.ops.pack_pallas import pack_exact_ref
 
 torch.set_num_threads(1)
 
@@ -152,3 +156,51 @@ def test_sort_channels_is_stable():
     want = np.argsort(keys, kind="stable").astype(np.float32)
     np.testing.assert_array_equal(p0.numpy(), want)
     np.testing.assert_array_equal(sk.numpy(), np.sort(keys))
+
+
+def _combine_pack_case(case):
+    """(keys, w, rgb) of `_stream`'s shape (p = 4096) for each case."""
+    if case.startswith("keys"):
+        return _stream(11, int(case[4:]))
+    p = 4096
+    w = np.full(p, 0.25, np.float32)
+    rgb = np.tile(np.asarray([[0.2, 0.4, 0.8]], np.float32), (p, 1))
+    keys = np.zeros(p, np.int32) if case == "one_run" else np.full(p, INV, np.int32)
+    return keys, w, rgb
+
+
+@pytest.mark.parametrize("is_blend", [True, False], ids=["blend", "max"])
+@pytest.mark.parametrize("case", ["keys3", "keys50", "keys4096", "one_run",
+                                  "all_invalid"])
+def test_combine_pack_plain_matches_jax(is_blend, case):
+    # combine_pack on the CPU (its plain version) against the oracle the
+    # Pallas composition `_combine_sorted_kernel` is held to
+    keys, w, rgb = _combine_pack_case(case)
+    want_k, want_v = _jax_combined(keys, w, rgb, is_blend)
+    sk, sch = _port_sorted(keys, w, rgb)
+    ok, och, oc = combine_pack(sk, sch, is_blend)
+    n = int(oc)
+    assert oc.dtype == torch.int32 and oc.shape == (1,) and n == want_k.size
+    got_v = torch.stack([c[:n] for c in och], -1).numpy()
+    _check(ok[:n].numpy(), got_v, want_k, want_v, is_blend)
+    assert bool((ok[n:] == INV).all())
+    assert all(bool((c[n:] == 0).all()) for c in och)
+
+
+def test_combine_pack_empty_stream():
+    e = torch.zeros(0, dtype=torch.float32)
+    ok, och, oc = combine_pack(torch.zeros(0, dtype=torch.int32), (e,) * 4, True)
+    assert ok.numel() == 0 and all(c.numel() == 0 for c in och)
+    assert oc.dtype == torch.int32 and int(oc) == 0
+
+
+@pytest.mark.parametrize("is_blend", [True, False], ids=["blend", "max"])
+def test_combine_presorted_is_the_plain_chain(is_blend):
+    # the engine's merge tail equals K2's plain version then K3's, exactly
+    keys, w, rgb = _stream(5, 50)
+    sk, sch = _port_sorted(keys, w, rgb)
+    got = _combine_presorted(sk, sch, is_blend)
+    tk, *tv = segment_combine_ref(sk, *sch, is_blend)
+    want = pack_exact_ref(tk, tuple(tv))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))

@@ -1,5 +1,6 @@
 """K3's and K5's plain versions against the JAX package's pack oracles,
-exactly."""
+exactly; the wrappers' checks and launch layouts (K2, K3, combine_pack and
+K5) without a card."""
 
 import numpy as np
 import pytest
@@ -8,9 +9,11 @@ import torch
 from obj2voxel_tpu.ops.pack_pallas import pack_channels_ref as jax_pack_channels_ref
 from obj2voxel_tpu.ops.pack_pallas import pack_exact_ref as jax_pack_exact_ref
 from obj2voxel_tpu_torch.ops import _cuda
+from obj2voxel_tpu_torch.ops.combine_pallas import combine_pack, segment_combine
 from obj2voxel_tpu_torch.ops.pack_pallas import (
     PACK_BLOCK, pack_channels, pack_channels_ref, pack_exact, pack_exact_ref,
 )
+from obj2voxel_tpu_torch.ops.reduce_by_key import RBK_TILE
 
 torch.set_num_threads(1)
 
@@ -95,11 +98,10 @@ def test_pack_channels_needs_whole_blocks():
 
 
 @pytest.mark.parametrize("kernel", ["fused_pass", "segment_combine", "pack_exact",
-                                    "pack_channels"])
+                                    "pack_channels", "combine_pack"])
 def test_wrappers_refuse_devices_without_kernel(kernel):
     # the plain version is taken only for CPU tensors; any other device
     # launches the CUDA kernel or raises, never falls back
-    from obj2voxel_tpu_torch.ops.combine_pallas import segment_combine
     from obj2voxel_tpu_torch.ops.pass_fused import fused_pass
 
     keys = torch.zeros(8, dtype=torch.int32, device="meta")
@@ -110,6 +112,8 @@ def test_wrappers_refuse_devices_without_kernel(kernel):
             fused_pass(table, 0, 4, 0, 0, 8, 8, expand=1, budget=8)
         elif kernel == "segment_combine":
             segment_combine(keys, *vals, True)
+        elif kernel == "combine_pack":
+            combine_pack(keys, vals, True)
         elif kernel == "pack_channels":
             pack_channels(torch.zeros(8192, dtype=torch.int32, device="meta"),
                           tuple(torch.zeros(8192, device="meta") for _ in range(4)))
@@ -190,3 +194,85 @@ def test_pack_channels_rejects_bad_inputs(bad):
         keys = keys.reshape(2, -1)
     with pytest.raises(ValueError):
         pack_channels(keys, vals)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "channels", "shape", "two_d"])
+def test_combine_pack_rejects_bad_inputs(bad):
+    keys = torch.zeros(8, dtype=torch.int32)
+    vals = tuple(torch.zeros(8) for _ in range(4))
+    if bad == "dtype":
+        vals = (vals[0].to(torch.float64),) + vals[1:]
+    elif bad == "channels":
+        vals = vals[:3]
+    elif bad == "shape":
+        vals = (torch.zeros(9),) + vals[1:]
+    else:
+        keys = keys.reshape(2, -1)
+    with pytest.raises(ValueError):
+        combine_pack(keys, vals, True)
+
+
+def _segment_combine(keys, vals, is_blend):
+    return segment_combine(keys, *vals, is_blend)
+
+
+# name -> (wrapper, combine, compact)
+RBK_INSTANCES = {
+    "combine_pack": (combine_pack, True, True),
+    "segment_combine": (_segment_combine, True, False),
+    "pack_exact": (lambda k, v, _: pack_exact(k, v), False, True),
+}
+
+
+@pytest.mark.parametrize("rows", [1, RBK_TILE, 3 * RBK_TILE + 5])
+@pytest.mark.parametrize("name", list(RBK_INSTANCES))
+def test_reduce_by_key_wrapper_layout(monkeypatch, name, rows):
+    # one call, one launch count, two buffers: the five output rows, then
+    # the count and (16-byte aligned) the scratch of 44 B a 4096-row tile
+    # plus 4 (the launcher zeroes its flags), so a kept count does not keep
+    # the rows alive.  A meta tensor's pointer is 0, so each pointer is the
+    # byte offset in its buffer.
+    wrapper, combine, compact = RBK_INSTANCES[name]
+    calls = []
+
+    class Lib:
+        def o2v_reduce_by_key(self, *args):
+            calls.append(args)
+            return 0
+
+    made = []
+    empty = torch.empty
+
+    def tracked_empty(*size, **kw):
+        made.append(empty(*size, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(_cuda, "lib", Lib)
+    monkeypatch.setattr(_cuda, "require_cuda", lambda name, *t: t[0].device)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda dev: 0)
+    n = rows
+    keys = torch.zeros(n, dtype=torch.int32, device="meta")
+    vals = tuple(torch.zeros(n, device="meta") for _ in range(4))
+    monkeypatch.setattr(torch, "empty", tracked_empty)
+    _cuda.reset_launches()
+    out = wrapper(keys, vals, False)
+    assert _cuda.LAUNCHES[name] == len(calls) == 1
+    assert sum(_cuda.LAUNCHES.values()) == 1
+    buf, aux = made
+    args = calls[0]
+    outs, count_at, scratch_at = args[5:10], args[10], args[11]
+    assert args[12:16] == (n, int(combine), int(compact), 0)
+    assert buf.dtype == torch.int32 and buf.numel() == 5 * n
+    assert list(outs) == [4 * n * i for i in range(5)]
+    tiles = -(-n // RBK_TILE)
+    assert aux.dtype == torch.int32 and count_at == 0 and scratch_at == 16
+    assert 16 + 44 * tiles + 4 <= 4 * aux.numel() < 16 + 44 * tiles + 8
+    # the returned tensors are the views the pointers name
+    k, v = out[0], out[1:] if name == "segment_combine" else out[1]
+    assert k.dtype == torch.int32 and k.shape == keys.shape and k.storage_offset() == 0
+    for i, x in enumerate(v, 1):
+        assert x.dtype == torch.float32 and x.shape == keys.shape
+        assert 4 * x.storage_offset() == outs[i]
+    if compact:
+        assert out[2].shape == (1,) and out[2].storage_offset() == 0
+        assert out[2].untyped_storage().nbytes() == 4 * aux.numel()
