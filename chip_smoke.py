@@ -6,9 +6,11 @@ at real size -- `stream_slabs` on the 2M-triangle sphere at 1024^3,
 untextured BLEND as bench.py runs it, the same table textured (one 4096^2
 REPEAT texture; K1's textured passes) under MAX, the untextured table
 through the merge-runs route (K6), and the table at 2048^3 supersampled
-down to 1024^3 under MAX (the CLI's `-r 1024 -u`) -- and checks the outputs
-against known voxel counts, the default route, the CPU run of the same
-code, and the closed forms.
+down to 1024^3 under MAX (the CLI's `-r 1024 -u`); 1000 small meshes
+through `voxelize_batch`; the sphere as a soup through `stream_sharded` in
+z windows repeated on the one card; the C shim -- and checks the outputs
+against known voxel counts and digests, the default route, one device, the
+CPU run of the same code, and the closed forms.
 
     python3 chip_smoke.py             # all phases; needs one CUDA device
     python3 chip_smoke.py --phases 1,13
@@ -19,8 +21,11 @@ memory of every kernel); 2 K1 (and its input-area and textured variants),
 their plain versions; 5 untextured
 end to end (with the merge-runs route, supersampling 2 and input-area
 weights) and 11 textured, card against CPU; 6 the unit-cube closed forms;
-7 untextured, 12 textured, 14 merge-runs and 15 supersampled real size; 8
-kernel timings beside each kernel's bound.  Prints one line per phase, a
+7 untextured, 12 textured, 14 merge-runs and 15 supersampled real size; 17
+batch (BASELINE config 5), 18 multi-device windows against one device, 19
+the C shim's capi_test on the card (9 also runs K4 through the public
+`clip_triangles_to_voxels_pallas`); 8 kernel timings beside each kernel's
+bound.  Prints one line per phase, a
 JSON line with the kernels' launches, errors, times and bounds, and as its
 last line {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line is printed.
@@ -60,6 +65,17 @@ SPHERE_VOXELS = 4_936_255
 # (scripts/instance_sphere_count.py): its count and the bytes' sha256.
 INSTANCE_SPHERE_VOXELS = 4_936_254
 INSTANCE_SPHERE_SHA256 = "d278e83022e97f7375fa04d4ac9ec8322ac8eac08a0f2a45f8716e2501cb7271"
+# Phase 17: BASELINE.md config 5 (scripts/scale_proof.py:104-115), 1000
+# small spheres at 64^3 MAX through `voxelize_batch`.  Its voxel count and
+# the sha256 of the per-mesh outputs (`batch_digest`) are the port's on the
+# CPU, and the JAX package's run op by op on the CPU gives the same count
+# and digest for the whole batch (scripts/batch_count.py).
+BATCH_MESHES = 1000
+BATCH_RES = 64
+BATCH_VOXELS = 18_162_858
+BATCH_SHA256 = "b94329ff2410c1f3078bc20ab567f91035c5ac2002c89296c5826b98dfe16e92"
+# Phase 19: the unit cube at r = 32 through the C shim (capi_test.c).
+CUBE_32_VOXELS = 5768
 BUDGET = 1 << 21
 STREAM = 1 << 22
 INV = (1 << 31) - 1
@@ -86,18 +102,23 @@ KERNELS = {
     "merge_runs": ("obj2voxel_tpu_torch/csrc/merge_runs.cu",
                    "obj2voxel_tpu/ops/merge_pallas.py:268"),
 }
-# the kernels each main path must launch
+# the kernels each main path must launch (sharded: BLEND in 2 windows, then
+# MAX in 3 under O2V_MERGE_RUNS=1; clip_helper: the public per-pair clip)
 PATH_KERNELS = {
     "untextured": ("fused_pass", "combine_pack"),
     "textured": ("fused_pass", "combine_pack"),
     "merge_runs": ("fused_pass", "merge_runs", "combine_pack"),
     "supersampled": ("fused_pass", "combine_pack"),
+    "batch": ("fused_pass", "combine_pack"),
+    "sharded": ("fused_pass", "merge_runs", "combine_pack"),
+    "clip_helper": ("clip_pairs",),
 }
 # the kernels a main path must not launch: every merge runs K2 and K3 as
-# combine_pack, and the textured passes clip in K1
+# combine_pack, and every pass clips in K1
 PATH_ABSENT = {path: ("segment_combine", "pack_exact") for path in PATH_KERNELS}
-PATH_ABSENT["textured"] += ("clip_pairs",)
-ALL_PHASES = set(range(1, 17))
+for path in ("textured", "batch", "sharded"):
+    PATH_ABSENT[path] += ("clip_pairs",)
+ALL_PHASES = set(range(1, 20))
 
 
 def fail(msg):
@@ -842,6 +863,35 @@ def phase_k4(stats):
     phase("9 K4 clip_pairs vs plain", t0,
           f"sphere pass {BUDGET} pairs, {occ} occupied; grazing 4096 pairs, "
           f"{gocc} occupied; max abs err {max(err, gerr):.3g}")
+    return clip_helper(tri, vox)
+
+
+def clip_helper(tri, vox):
+    """The public per-pair clip `clip_triangles_to_voxels_pallas` on the
+    sphere pass's pairs as (P, 3, 3) / (P, 3, 2) / (P, 3), with the launch
+    counts reset just before it and read just after; held bit for bit
+    against its plain version, ops/clip.clip_triangles_to_voxels."""
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch.ops.clip import clip_triangles_to_voxels
+    from obj2voxel_tpu_torch.ops.clip_pallas import clip_triangles_to_voxels_pallas
+
+    t0 = time.perf_counter()
+    n = tri.shape[1]
+    verts = tri[0:9].T.reshape(n, 3, 3).contiguous()
+    uvs = tri[9:15].T.reshape(n, 3, 2).contiguous()
+    pos = vox[0:3].T.to(torch.int32).contiguous()
+    pt.reset_launches()
+    w, uv = clip_triangles_to_voxels_pallas(verts, uvs, pos)
+    torch.cuda.synchronize()
+    launches = dict(pt.LAUNCHES)
+    check_path("clip_helper", launches)
+    want_w, want_uv = clip_triangles_to_voxels(verts, uvs, pos)
+    if not (torch.equal(w, want_w) and torch.equal(uv, want_uv)):
+        fail("clip_triangles_to_voxels_pallas differs from its plain version")
+    phase("9 K4 through clip_triangles_to_voxels_pallas vs plain", t0,
+          f"{n} pairs, {int((w > 0).sum())} occupied, bit for bit; launches "
+          f"{launches['clip_pairs']}")
+    return launches
 
 
 def voxel_dict(gen):
@@ -1071,6 +1121,17 @@ def timed_runs(fn, want, what, n=3):
     return times
 
 
+def check_path(name, launches):
+    """A main path's launch counts: each of PATH_KERNELS[name] launched,
+    none of PATH_ABSENT[name]."""
+    for kernel in PATH_KERNELS[name]:
+        if launches[kernel] <= 0:
+            fail(f"{name} main path launched {kernel} no time")
+    for kernel in PATH_ABSENT[name]:
+        if launches[kernel]:
+            fail(f"{name} main path launched {kernel} {launches[kernel]} times")
+
+
 def real_size(name, table, pool, aabb, is_blend, check, info, want=SPHERE_VOXELS,
               **kw):
     """Drive one main path with the launch counts reset just before it and
@@ -1083,12 +1144,7 @@ def real_size(name, table, pool, aabb, is_blend, check, info, want=SPHERE_VOXELS
     launches = dict(pt.LAUNCHES)
     if voxels != want:
         fail(f"{name} sphere: {voxels} voxels, want {want}")
-    for kernel in PATH_KERNELS[name]:
-        if launches[kernel] <= 0:
-            fail(f"{name} main path launched {kernel} no time")
-    for kernel in PATH_ABSENT.get(name, ()):
-        if launches[kernel]:
-            fail(f"{name} main path launched {kernel} {launches[kernel]} times")
+    check_path(name, launches)
     if launches["combine_pack"] >= launches["fused_pass"]:
         # a slab merge runs combine_pack once or twice over its passes; as
         # many as the passes means a compaction per pass
@@ -1245,6 +1301,165 @@ def phase_real_size_textured(info):
     return launches
 
 
+def batch_meshes(n=BATCH_MESHES, seed=0):
+    """BASELINE.md config 5 as scripts/scale_proof.py builds it: n UV spheres
+    of randint(50, 400) triangles, each scaled by uniform(0.5, 1.5), drawn
+    from RandomState(seed); (T, 3, 3) float32 vertex arrays."""
+    from obj2voxel_tpu_torch.utils.meshes import make_sphere_mesh
+
+    rng = np.random.RandomState(seed)
+    meshes = []
+    for _ in range(n):
+        n_tris = int(rng.randint(50, 400))
+        meshes.append(make_sphere_mesh(n_tris) * rng.uniform(0.5, 1.5))
+    return meshes
+
+
+def batch_digest(results):
+    """(total voxels, non-empty meshes, sha256 over every mesh's count, xyz
+    (little-endian int32) and argb (little-endian uint32) in order)."""
+    h = hashlib.sha256()
+    for xyz, argb in results:
+        h.update(np.int64(xyz.shape[0]).tobytes())
+        h.update(np.ascontiguousarray(xyz, "<i4").tobytes())
+        h.update(np.ascontiguousarray(argb, "<u4").tobytes())
+    return (sum(x.shape[0] for x, _ in results),
+            sum(1 for x, _ in results if x.shape[0]), h.hexdigest())
+
+
+def phase_batch(info):
+    """Config 5 through `voxelize_batch` on the card: 1000/1000 meshes
+    non-empty, the count and digest of the CPU runs, K1 and combine_pack
+    launched; then the warm median of 3 runs."""
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch.engine import prepare_soup
+
+    t0 = time.perf_counter()
+    soups = [pt.TriangleSoup.from_vertices(t) for t in batch_meshes()]
+    n_tris = sum(len(x) for x in soups)
+
+    def run():
+        return pt.voxelize_batch(soups, resolution=BATCH_RES)
+
+    pt.reset_launches()
+    results = run()
+    launches = dict(pt.LAUNCHES)
+    check_path("batch", launches)
+    voxels, nonempty, digest = batch_digest(results)
+    if nonempty != BATCH_MESHES:
+        fail(f"batch: {nonempty}/{BATCH_MESHES} meshes non-empty")
+    if (voxels, digest) != (BATCH_VOXELS, BATCH_SHA256):
+        fail(f"batch: {voxels} voxels, sha256 {digest}; want {BATCH_VOXELS}, "
+             f"{BATCH_SHA256} (the CPU runs')")
+    del results
+    times = timed_runs(lambda: sum(x.shape[0] for x, _ in run()), voxels, "batch")
+    med = sorted(times)[1]
+    # the per-mesh host work alone (normalize, subdivide), as voxelize_batch
+    # does it before the stream
+    t = time.perf_counter()
+    for soup in soups:
+        prepare_soup(soup, BATCH_RES)
+    host = time.perf_counter() - t
+    phase(f"17 batch ({BATCH_MESHES} spheres @ {BATCH_RES}^3 MAX, voxelize_batch)", t0,
+          f"{BATCH_MESHES}/{BATCH_MESHES} non-empty, {voxels} voxels, {n_tris} "
+          f"triangles, sha256 equal to the CPU runs'; warm median {med:.4f} s = "
+          f"{BATCH_MESHES / med:.1f} meshes/s; runs {[round(x, 4) for x in times]}; "
+          f"per-mesh host prep alone {host:.4f} s; launches {launches}; on {info}")
+    return launches
+
+
+def sorted_voxels(batches):
+    """Concatenated (xyz, argb) batches as (linear keys, argb) numpy arrays
+    sorted by key; fails on a voxel given twice."""
+    xyz = np.concatenate([x for x, _ in batches]).astype(np.int64)
+    argb = np.concatenate([a for _, a in batches])
+    keys = (xyz[:, 2] * SPHERE_RES + xyz[:, 1]) * SPHERE_RES + xyz[:, 0]
+    order = np.argsort(keys, kind="stable")
+    keys, argb = keys[order], argb[order]
+    if keys.size and (np.diff(keys) == 0).any():
+        fail("sharded sphere: a voxel was emitted twice")
+    return keys, argb
+
+
+def phase_sharded(info):
+    """bench.py's sphere as a TriangleSoup through `stream_sharded` with its
+    windows repeated on the one card: BLEND in 2 windows, MAX in 3 with the
+    merge-runs route, each against `voxelize_soup` of the same soup and
+    options on the card (the voxel set exactly, MAX bytes exactly, BLEND
+    within 1 LSB)."""
+    import os
+
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch.constants import BLEND_STRATEGY, MAX_STRATEGY
+    from obj2voxel_tpu_torch.parallel.mesh import stream_sharded
+    from obj2voxel_tpu_torch.utils.meshes import make_sphere_mesh
+
+    t0 = time.perf_counter()
+    soup = pt.TriangleSoup.from_vertices(make_sphere_mesh(SPHERE_TRIS))
+    cases = ((BLEND_STRATEGY, 2, "0"), (MAX_STRATEGY, 3, "1"))
+    before = os.environ.get("O2V_MERGE_RUNS")
+    details, launches = [], {}
+    try:
+        pt.reset_launches()
+        runs = []
+        for strategy, n_win, merge_runs in cases:
+            os.environ["O2V_MERGE_RUNS"] = merge_runs
+            t = time.perf_counter()
+            got = sorted_voxels(list(stream_sharded(
+                soup, resolution=SPHERE_RES, strategy=strategy,
+                devices=["cuda:0"] * n_win)))
+            runs.append((got, time.perf_counter() - t))
+        launches = dict(pt.LAUNCHES)
+        check_path("sharded", launches)
+        for (strategy, n_win, merge_runs), (got, secs) in zip(cases, runs):
+            os.environ["O2V_MERGE_RUNS"] = "0"
+            t = time.perf_counter()
+            want = sorted_voxels(list(pt.voxelize_soup(
+                soup, resolution=SPHERE_RES, strategy=strategy)))
+            one = time.perf_counter() - t
+            blend = strategy == BLEND_STRATEGY
+            if not np.array_equal(got[0], want[0]):
+                fail(f"sharded sphere x{n_win}: voxel sets differ ({got[0].size} vs "
+                     f"{want[0].size})")
+            lsb = int(np.abs(got[1].view(np.uint8).astype(np.int16)
+                             - want[1].view(np.uint8).astype(np.int16)).max())
+            if lsb > (1 if blend else 0):
+                fail(f"sharded sphere x{n_win}: colors differ by {lsb} LSB")
+            details.append(
+                f"{'BLEND' if blend else 'MAX, O2V_MERGE_RUNS=1'} in {n_win} windows: "
+                f"{got[0].size} voxels, {lsb} LSB from one device; {secs:.3f} s "
+                f"(one device {one:.3f} s, host prep included)")
+    finally:
+        if before is None:
+            os.environ.pop("O2V_MERGE_RUNS", None)
+        else:
+            os.environ["O2V_MERGE_RUNS"] = before
+    phase("18 multi-device windows on one card (2M-tri sphere soup @ 1024^3)", t0,
+          "; ".join(details) + f"; launches {launches}; windows repeated on one "
+          f"card, no multi-card number; on {info}")
+    return launches
+
+
+def phase_capi():
+    """The port's C shim built from native/ and native/test/capi_test.c run
+    on the card: the unit cube's closed form at r = 32."""
+    from obj2voxel_tpu_torch.capi import build_shim, shim_env
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = build_shim(Path(tmp) / "build")
+        built = time.perf_counter() - t0
+        proc = subprocess.run([str(exe)], env=shim_env("cuda"), capture_output=True,
+                              text=True, timeout=600)
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0 or f"voxels: {CUBE_32_VOXELS} expected: {CUBE_32_VOXELS}" \
+            not in proc.stdout:
+        fail(f"C shim on the card: exit {proc.returncode}\n{out}")
+    phase("19 C shim (libobj2voxel_tpu_torch.so, capi_test on cuda)", t0,
+          f"built in {built:.1f} s; unit cube r=32 -> {CUBE_32_VOXELS} voxels; "
+          "ERR_NO_INPUT path checked")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))))
@@ -1269,17 +1484,19 @@ def main():
     phase("1 build", t0, f"nvcc {_cuda.BUILD_SECONDS} s -> {_cuda.library_path().name}")
 
     stats = {name: {} for name in (*KERNELS, "fused_pass_textured")}
+    by_path = {path: {name: 0 for name in KERNELS} for path in PATH_KERNELS}
     for num, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3), (16, phase_rbk),
                     (9, phase_k4), (10, phase_k5), (13, phase_k6)):
         if want & {num, 8}:
-            fn(stats)
+            launches = fn(stats)
+            if num == 9:
+                by_path["clip_helper"] = launches
     if 5 in want:
         phase_e2e()
     if 11 in want:
         phase_e2e_textured()
     if 6 in want:
         phase_closed_forms()
-    by_path = {path: {name: 0 for name in KERNELS} for path in PATH_KERNELS}
     if 7 in want:
         by_path["untextured"] = phase_real_size(info)
     if 12 in want:
@@ -1288,6 +1505,12 @@ def main():
         by_path["merge_runs"] = phase_merge_runs(info)
     if 15 in want:
         by_path["supersampled"] = phase_supersampled(info)
+    if 17 in want:
+        by_path["batch"] = phase_batch(info)
+    if 18 in want:
+        by_path["sharded"] = phase_sharded(info)
+    if 19 in want:
+        phase_capi()
     if 8 in want:
         for name, s in stats.items():
             lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f} ms"

@@ -3,7 +3,9 @@
 The port of obj2voxel_tpu/api.py: every function of include/obj2voxel.h has
 a counterpart here with the same semantics, validation order, and error
 codes (reference: obj2voxel.h:89-406, obj2voxel.cpp:602-637).  An Instance
-runs on one CUDA device unless it is given another (`Instance("cpu")`).
+runs on one CUDA device unless it is given another (`Instance("cpu")`);
+with set_parallel(True) on a CUDA device and more than one card visible it
+streams one z window a card (parallel/mesh.py).
 
 Usage:
     inst = Instance()
@@ -32,6 +34,7 @@ from .io.writers import (
     detect_file_type,
     make_writer,
 )
+from .parallel.mesh import parallel_devices, stream_sharded
 from .soup import TexturePool, TriangleSoup
 from .utils.log import log
 
@@ -258,19 +261,22 @@ class Instance:
                 return C.ERR_OK
             log.info(f"Cached model with {len(soup)} triangles")
 
-            # one device: set_parallel is accepted and ignored until the
-            # z-sharded multi-GPU path is ported (ROADMAP Queue 1 item 12)
-            batches = voxelize_soup(
-                soup,
-                pool,
+            opts = dict(
                 resolution=self._resolution,
-                device=self.device,
                 supersampling=self._supersampling,
                 strategy=self._strategy,
                 unit_transform=self._unit_transform,
                 bounds=self._bounds,
                 pair_tile=self._pair_tile,
             )
+            devices = parallel_devices(self.device) if self._parallel else []
+            if len(devices) > 1:
+                # z windows over the devices (reference chunk parallelism,
+                # obj2voxel.cpp:503-507); batches reach the sink in
+                # completion order
+                batches = stream_sharded(soup, pool, devices=devices, **opts)
+            else:
+                batches = voxelize_soup(soup, pool, device=self.device, **opts)
 
             ok = True
             for xyz, argb in batches:

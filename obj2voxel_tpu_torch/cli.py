@@ -61,8 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="enable 2x supersampling")
     p.add_argument("-j", "--threads", dest="threads", type=int, default=None,
                    metavar="threads",
-                   help="worker count (accepted for compatibility; compute "
-                        "runs on the one device of --device)")
+                   help="worker count; 0 disables multi-device parallelism "
+                        "(otherwise a CUDA --device shards z windows over "
+                        "every visible card)")
     p.add_argument("-v", "--verbose", dest="verbose", action="count", default=0,
                    help="enable verbose logging (-vv for per-slab progress)")
     p.add_argument("-V", "--version", dest="version", action="store_true",
@@ -141,7 +142,7 @@ def main(argv=None) -> int:
 
     inst.set_unit_transform(unit_transform)
     # parallel by default, like the reference CLI spawning hardware_concurrency
-    # workers (main.cpp:149-164); the Instance runs on one device either way
+    # workers (main.cpp:149-164): one z window a visible card (-j 0: one card)
     inst.set_parallel(args.threads != 0)
     inst.set_resolution(args.resolution)
     inst.set_supersampling(1 + int(args.supersample))

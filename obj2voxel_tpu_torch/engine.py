@@ -40,6 +40,13 @@ are even, so no 2x2x2 cell straddles two slabs.  Supersampling bypasses the
 merge-runs route, as in the JAX package: its merge sorts after the
 downscale.
 
+Batch mode (`voxelize_batch`, obj2voxel_tpu/engine.py:1501-1587) stacks many
+small meshes along z, each normalized to its own grid, into one
+`voxelize_grid` stream, and splits the output by mesh once, after it (a
+stack with more than MAX_DEVICE_SLABS slabs is planned on the host).
+`stream_slabs(z_window=...)` streams one window of the grid, for
+parallel/mesh.py.
+
 The device defaults to CUDA; on a CPU tensor each kernel wrapper takes its
 plain version, on a CUDA tensor it launches the hand-written kernel.
 """
@@ -69,8 +76,9 @@ from .utils import debug as _dbg
 from .utils.log import log as _log
 
 __all__ = [
-    "MAX_PASS_BUDGET", "TriangleSoup", "build_tri_table", "plan_fold_chunks",
-    "stream_slabs", "voxelize_grid", "voxelize_soup",
+    "MAX_PASS_BUDGET", "TriangleSoup", "build_tri_table", "densify",
+    "plan_fold_chunks", "stream_slabs", "voxelize_batch", "voxelize_grid",
+    "voxelize_soup",
 ]
 
 #: Maximum pair slots per pass (the effective budget is
@@ -280,42 +288,55 @@ def voxelize_soup(
     and halves each axis; `merge_runs` and `input_area_weights` are
     `stream_slabs`'s."""
     device = torch.device(device)
-    n = len(soup)
-    if n == 0:
+    if len(soup) == 0:
         return
-
     sample_res = resolution * supersampling
-    is_blend = bool(strategy == BLEND_STRATEGY)
-    do_down = bool(supersampling > 1)
+    host = prepare_soup(soup, sample_res, unit_transform, bounds, subdivide)
+    gen = voxelize_grid(
+        *host, upload_pool(pool, device),
+        device=device, stride=sample_res, z_extent=sample_res,
+        is_blend=bool(strategy == BLEND_STRATEGY), do_down=bool(supersampling > 1),
+        pair_tile=pair_tile, max_pass_budget=max_pass_budget, group=group,
+        merge_runs=merge_runs, input_area_weights=input_area_weights,
+    )
+    del host
+    yield from gen
+
+
+def prepare_soup(soup, sample_res, unit_transform=None, bounds=None,
+                 subdivide=True):
+    """Host work of one mesh: normalize to [0, sample_res)^3 (or to
+    `bounds`), then subdivide.  Returns the host arrays (verts (N, 3, 3),
+    uvs, types, rgb, tex) in voxel space."""
     if bounds is None:
         mesh_min, mesh_max = mesh_bounds(soup.verts)
     else:
         mesh_min = np.asarray(bounds[0], np.float32)
         mesh_max = np.asarray(bounds[1], np.float32)
     transform = compute_mesh_transform(mesh_min, mesh_max, sample_res, unit_transform)
-    pool_dev = upload_pool(pool, device)
-
-    verts_host = transform.apply(soup.verts)
+    verts = transform.apply(soup.verts)
     if subdivide:
-        verts_host, uvs_host, tri_index = subdivide_soup(verts_host, soup.uvs)
-        types_host = soup.types[tri_index]
-        rgb_host = soup.rgb[tri_index]
-        tex_host = soup.tex[tri_index]
+        verts, uvs, tri_index = subdivide_soup(verts, soup.uvs)
+        host = (verts, uvs, soup.types[tri_index], soup.rgb[tri_index],
+                soup.tex[tri_index])
     else:
-        uvs_host, types_host, rgb_host, tex_host = (
-            soup.uvs, soup.types, soup.rgb, soup.tex,
-        )
+        host = (verts, soup.uvs, soup.types, soup.rgb, soup.tex)
     if debug_stl.enabled():
-        debug_stl.record(verts_host)
-    gen = voxelize_grid(
-        verts_host, uvs_host, types_host, rgb_host, tex_host, pool_dev,
-        device=device, stride=sample_res, z_extent=sample_res,
-        is_blend=is_blend, do_down=do_down, pair_tile=pair_tile,
-        max_pass_budget=max_pass_budget, group=group, merge_runs=merge_runs,
-        input_area_weights=input_area_weights,
-    )
-    del verts_host, uvs_host, types_host, rgb_host, tex_host
-    yield from gen
+        debug_stl.record(verts)
+    return host
+
+
+def host_table(verts_host, uvs_host, types_host, rgb_host, tex_host, *, stride,
+               z_extent):
+    """The (N_pad, 24) host table of pre-transformed triangles and their
+    host voxel AABBs (vmin, vmax) (x/y grid-clamped, vmax exclusive), as
+    `stream_slabs` takes them."""
+    clamp_hi = np.array([stride, stride, z_extent], np.float32)
+    vmin_h = np.clip(np.floor(verts_host.min(axis=1)), 0, clamp_hi).astype(np.int32)
+    vmax_h = np.clip(np.floor(verts_host.max(axis=1)) + 1, 0, clamp_hi).astype(np.int32)
+    table = build_tri_table(verts_host, uvs_host, types_host, rgb_host, tex_host,
+                            n_pad=_pow2_at_least(verts_host.shape[0]))
+    return table, (vmin_h, vmax_h)
 
 
 def voxelize_grid(
@@ -335,20 +356,16 @@ def voxelize_grid(
     spanning [0, stride) in x/y and [0, z_extent) in z.  `pool` is the
     device texture pool (ops/color.upload_pool) or None; the other options
     are `stream_slabs`'s."""
-    n_sub = verts_host.shape[0]
-    if n_sub == 0:
+    if verts_host.shape[0] == 0:
         return
-    clamp_hi = np.array([stride, stride, z_extent], np.float32)
-    vmin_h = np.clip(np.floor(verts_host.min(axis=1)), 0, clamp_hi).astype(np.int32)
-    vmax_h = np.clip(np.floor(verts_host.max(axis=1)) + 1, 0, clamp_hi).astype(np.int32)
-    table = torch.from_numpy(
-        build_tri_table(verts_host, uvs_host, types_host, rgb_host, tex_host,
-                        n_pad=_pow2_at_least(n_sub))
-    ).to(device)
+    table, aabb = host_table(verts_host, uvs_host, types_host, rgb_host, tex_host,
+                             stride=stride, z_extent=z_extent)
+    # the generator frame lives for the whole stream: keep no host copies
     del verts_host, uvs_host, types_host, rgb_host, tex_host
+    table = torch.from_numpy(table).to(device)
     yield from stream_slabs(
-        table, pool, aabb_host=(vmin_h, vmax_h), stride=stride, z_extent=z_extent,
-        is_blend=is_blend, do_down=do_down, pair_tile=pair_tile,
+        table, pool, aabb_host=aabb, stride=stride,
+        z_extent=z_extent, is_blend=is_blend, do_down=do_down, pair_tile=pair_tile,
         max_pass_budget=max_pass_budget, group=group, merge_runs=merge_runs,
         input_area_weights=input_area_weights,
     )
@@ -369,6 +386,7 @@ def stream_slabs(
     group: int = PLAN_GROUP,
     merge_runs: bool | None = None,
     input_area_weights: bool | None = None,
+    z_window: tuple[int, int] | None = None,
 ):
     """Slab streaming over a device-resident (N, 24) triangle table in voxel
     space.  `aabb_host` is the host (vmin, vmax) pair of per-triangle voxel
@@ -384,6 +402,9 @@ def stream_slabs(
     O2V_WEIGHT_MODE=input_area) weighs each occupied voxel by its whole
     triangle's area; both defaults are read once per call.
 
+    `z_window` = (z0, z1), even-aligned, streams only the slabs that tile
+    that range of the grid (parallel/mesh.py gives each device one).
+
     Yields (xyz, argb) numpy arrays per slab, or with device_outputs=True
     (xyz, argb, count) with xyz/argb still on the device, count-padded."""
     if merge_runs is None:
@@ -398,13 +419,15 @@ def stream_slabs(
     textured = pool is not None and pool[0].shape[0] > 1
 
     order, segments = plan_mesh_device(
-        tri_table, n_sub, stride, z_extent, slot_budget, group=group
+        tri_table, n_sub, stride, z_extent, slot_budget, group=group,
+        z_window=z_window,
     )
     if order is None and segments is not None:
         return  # empty mesh
     if order is None:
         # too many slabs for the device planner: plan on the host
-        order_np, segments = plan_mesh(vmin_h, vmax_h, stride, z_extent, slot_budget)
+        order_np, segments = plan_mesh(vmin_h, vmax_h, stride, z_extent, slot_budget,
+                                       z_window=z_window)
         if order_np is None:
             return
         order = torch.from_numpy(order_np.astype(np.int64)).to(tri_table.device)
@@ -473,3 +496,74 @@ def stream_slabs(
                     yield xyz, argb, count
                 else:
                     yield _pull(xyz, count), _pull(argb, count)
+
+
+def voxelize_batch(
+    soups,
+    pool: TexturePool | None = None,
+    *,
+    resolution: int,
+    device="cuda",
+    supersampling: int = 1,
+    strategy: int = MAX_STRATEGY,
+    pair_tile: int = PAIR_TILE,
+    max_pass_budget: int = MAX_PASS_BUDGET,
+):
+    """Voxelize many small meshes in one device stream (3D-ML dataset
+    generation; obj2voxel_tpu/engine.py:1501-1579).
+
+    Each mesh is normalized to its own [0, r_s)^3 grid (r_s = resolution *
+    supersampling) and subdivided, then mesh i is moved to z in
+    [i r_s, (i + 1) r_s) by adding i r_s to z in float32, the JAX package's
+    op: far up the stack that rounds, so a mesh's voxels in a batch need
+    not be its voxels alone.  One `voxelize_grid` stream covers the stack,
+    and its output is split by mesh once, after the stream.  Returns one
+    (xyz (K, 3) int32, argb (K,) uint32) per mesh, in that mesh's own grid
+    and in stream order; an empty mesh keeps its slot with no voxels."""
+    sample_res = resolution * supersampling
+    parts = []
+    for i, soup in enumerate(soups):
+        if len(soup) == 0:
+            continue
+        verts, *rest = prepare_soup(soup, sample_res)
+        verts = verts.copy()
+        verts[:, :, 2] += np.float32(i * sample_res)  # stack along z
+        parts.append((verts, *rest))
+    if not parts:
+        return [(np.zeros((0, 3), np.int32), np.zeros((0,), np.uint32))
+                for _ in soups]
+    device = torch.device(device)
+    stream = voxelize_grid(
+        *(np.concatenate(column) for column in zip(*parts)),
+        upload_pool(pool, device), device=device, stride=sample_res,
+        z_extent=len(soups) * sample_res, is_blend=bool(strategy == BLEND_STRATEGY),
+        do_down=bool(supersampling > 1), pair_tile=pair_tile,
+        max_pass_budget=max_pass_budget,
+    )
+    del parts
+    return split_by_mesh(list(stream), len(soups), resolution)
+
+
+def split_by_mesh(batches, n_meshes, extent):
+    """Split a stacked stream's (xyz, argb) batches into one (xyz, argb) per
+    mesh, mesh i owning z in [i extent, (i + 1) extent), with z made
+    mesh-local.  The slabs stream in z order and each slab's rows in key
+    (z-major) order, so mesh ids never decrease along the concatenated
+    stream: the split is a cut at each mesh's first row, and every mesh
+    keeps stream order."""
+    xyz = np.concatenate([b[0] for b in batches] or [np.zeros((0, 3), np.int32)])
+    argb = np.concatenate([b[1] for b in batches] or [np.zeros((0,), np.uint32)])
+    mesh_id = xyz[:, 2] // extent
+    if (mesh_id[1:] < mesh_id[:-1]).any():
+        raise RuntimeError("split_by_mesh: the stream is not in z order")
+    xyz[:, 2] -= mesh_id * extent
+    cuts = np.searchsorted(mesh_id, np.arange(1, n_meshes))
+    return list(zip(np.split(xyz, cuts), np.split(argb, cuts)))
+
+
+def densify(xyz: np.ndarray, argb: np.ndarray, resolution: int) -> np.ndarray:
+    """Sparse voxel list -> dense (r, r, r) uint32 ARGB grid (0 = empty)."""
+    grid = np.zeros((resolution,) * 3, np.uint32)
+    if xyz.shape[0]:
+        grid[xyz[:, 0], xyz[:, 1], xyz[:, 2]] = argb
+    return grid

@@ -68,11 +68,20 @@ _SIGNATURES = {
 
 _LIB = None
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str, n: int = 1):
+    """Add n launches to `name`'s count (under a lock: parallel/mesh.py
+    launches from one thread per device)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += n
 
 
 def _sources():

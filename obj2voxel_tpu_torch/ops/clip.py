@@ -6,7 +6,9 @@ polygons (slot[count] duplicates slot[0]), with the reference's epsilon
 "planar goes hi" rules and the clipped area as weight.  See the JAX module's
 docstring for the semantics.  This is the plain version inside the fused
 pass kernel's plain version (ops/pass_fused.py); csrc/fused_pass.cu runs the
-same operations in the same order per slot.
+same operations in the same order per slot.  `clip_triangles_to_voxels` is
+the public per-pair entry point (K4's layout wrapper is
+ops/clip_pallas.clip_triangles_to_voxels_pallas).
 """
 
 from __future__ import annotations
@@ -152,3 +154,31 @@ def clip_channels(tri_data, vox_data):
     voxel_f = [vox_data[0:1], vox_data[1:2], vox_data[2:3]]
     slots, count = _clip_polygons(slots, count, voxel_f)
     return _area_uv(slots, count)
+
+
+def clip_triangles_to_voxels(verts, uvs, voxel_pos):
+    """Clip each triangle against its voxel's cube; return (weight, uv).
+
+    verts (P, 3, 3) triangle vertices in voxel-grid space, uvs (P, 3, 2)
+    per-vertex texture coordinates, voxel_pos (P, 3) the voxel's minimum
+    corner (tensors or arrays; computed in float32 on verts' device).
+    Returns weight (P,) float32, the clipped polygon's area (0 where the
+    triangle does not occupy the voxel under the reference's epsilon
+    rules), and uv (P, 2) float32, the area-weighted UV centroid of the
+    clipped region."""
+    verts = torch.as_tensor(verts).to(torch.float32)
+    dev = verts.device
+    uvs = torch.as_tensor(uvs, device=dev).to(torch.float32)
+    voxel_pos = torch.as_tensor(voxel_pos, device=dev)
+    voxel_f = [voxel_pos[:, a].to(torch.float32) for a in range(3)]
+
+    def slot(i):
+        return torch.stack([verts[:, i, 0], verts[:, i, 1], verts[:, i, 2],
+                            uvs[:, i, 0], uvs[:, i, 1]])
+
+    s0 = slot(0)
+    slots = [s0, slot(1), slot(2), s0]  # closed triangle
+    count = torch.full((verts.shape[0],), 3, dtype=torch.int32, device=dev)
+    slots, count = _clip_polygons(slots, count, voxel_f)
+    weight, uv_u, uv_v = _area_uv(slots, count)
+    return weight, torch.stack([uv_u, uv_v], dim=-1)

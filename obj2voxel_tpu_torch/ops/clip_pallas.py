@@ -9,7 +9,9 @@ w = 0).  Any P; the caller pads nothing.
 
 `clip_pairs` takes the plain version for CPU tensors and launches the CUDA
 kernel for CUDA tensors; `clip_pairs_ref` is the plain version,
-ops/clip.py's `clip_channels`.
+ops/clip.py's `clip_channels`.  `clip_triangles_to_voxels_pallas` is the
+per-pair public entry point over it (obj2voxel_tpu/ops/clip_pallas.py:92),
+the twin of ops/clip.clip_triangles_to_voxels.
 """
 
 from __future__ import annotations
@@ -54,8 +56,22 @@ def clip_pairs(tri_data, vox_data):
         _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "clip_pairs")
-    _cuda.LAUNCHES["clip_pairs"] += 1
+    _cuda.count_launch("clip_pairs")
     return out
+
+
+def clip_triangles_to_voxels_pallas(verts, uvs, voxel_pos):
+    """ops/clip.clip_triangles_to_voxels through `clip_pairs` (K4 on a CUDA
+    device): verts (P, 3, 3), uvs (P, 3, 2), voxel_pos (P, 3) tensors on one
+    device -> (weight (P,), uv (P, 2)) float32."""
+    n = verts.shape[0]
+    f32 = torch.float32
+    tri = torch.cat([verts.reshape(n, 9).T.to(f32), uvs.reshape(n, 6).T.to(f32),
+                     torch.zeros((1, n), dtype=f32, device=verts.device)])
+    vox = torch.cat([voxel_pos.T.to(f32),
+                     torch.zeros((1, n), dtype=f32, device=verts.device)])
+    out = clip_pairs(tri, vox)
+    return out[0], out[1:3].T
 
 
 def pass_pairs(table_t, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,

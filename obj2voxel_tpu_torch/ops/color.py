@@ -35,6 +35,12 @@ def upload_pool(pool, device):
     )
 
 
+def sample_pair_colors(uv, tri_type, tri_rgb, tri_tex, pool_pixels, pool_meta):
+    """`sample_pair_colors_uv` with the pairs' UVs as one (P, 2) tensor."""
+    return sample_pair_colors_uv(uv[:, 0], uv[:, 1], tri_type, tri_rgb, tri_tex,
+                                 pool_pixels, pool_meta)
+
+
 def sample_pair_colors_uv(uv_u, uv_v, tri_type, tri_rgb, tri_tex, pool_pixels,
                           pool_meta):
     """Resolve the colors of a batch of pairs.

@@ -22,14 +22,16 @@ from __future__ import annotations
 import numpy as np
 
 
-def plan_adaptive_slabs(vmin, vmax, stride, z_extent, slot_budget, align=2):
+def plan_adaptive_slabs(vmin, vmax, stride, z_extent, slot_budget, align=2,
+                        z_window=None):
     """Choose z-slab boundaries so each slab's estimated pair-slot count fits
     `slot_budget` (single device pass per slab) while keys stay below int31.
 
     Estimates per-z-row slot counts with a difference-array histogram of
     sx*sy contributions (pow2 bucket rounding adds up to 2x, so callers
     should pass a budget with margin).  Boundaries are aligned to `align`
-    (2 keeps supersampled downscale slab-local).
+    (2 keeps supersampled downscale slab-local).  `z_window` is
+    `slabs_from_rows`'s.
     """
     sx = np.maximum(vmax[:, 0] - vmin[:, 0], 0)
     sy = np.maximum(vmax[:, 1] - vmin[:, 1], 0)
@@ -40,28 +42,32 @@ def plan_adaptive_slabs(vmin, vmax, stride, z_extent, slot_budget, align=2):
     np.add.at(diff, z0, area)
     np.add.at(diff, z1, -area)
     per_row = np.cumsum(diff[:-1])
-    return slabs_from_rows(per_row, stride, z_extent, slot_budget, align)
+    return slabs_from_rows(per_row, stride, z_extent, slot_budget, align,
+                           z_window)
 
 
-def slabs_from_rows(per_row, stride, z_extent, slot_budget, align=2):
+def slabs_from_rows(per_row, stride, z_extent, slot_budget, align=2,
+                    z_window=None):
     """Slab boundaries from a per-z-row slot-count histogram (int or float;
-    the device planner supplies f32 counts, exact enough for budgeting)."""
+    the device planner supplies f32 counts, exact enough for budgeting).
+    With `z_window` = (z0, z1) the slabs tile [z0, z1) only (a multi-device
+    window; z0 keeps the alignment), else [0, z_extent)."""
     max_h_keys = max(align, (2**31 - 2) // (stride * stride))
 
     slabs = []
-    z = 0
-    while z < z_extent:
+    z, z_end = (0, z_extent) if z_window is None else z_window
+    while z < z_end:
         acc = 0
         zh = z
-        while zh < z_extent and zh - z < max_h_keys:
+        while zh < z_end and zh - z < max_h_keys:
             nxt = acc + int(per_row[zh])
             if zh > z and nxt > slot_budget:
                 break
             acc = nxt
             zh += 1
         # align the boundary (never below z + align unless at the end)
-        if zh < z_extent:
+        if zh < z_end:
             zh = max(z + align, zh - (zh - z) % align)
-        slabs.append((z, min(zh, z_extent)))
+        slabs.append((z, min(zh, z_end)))
         z = slabs[-1][1]
     return slabs

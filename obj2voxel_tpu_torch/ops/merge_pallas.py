@@ -143,5 +143,5 @@ def merge_runs(keys, chans, offsets):
         len(plans), n, _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "merge_runs")
-    _cuda.LAUNCHES["merge_runs"] += len(plans)  # one launch a level
+    _cuda.count_launch("merge_runs", len(plans))  # one launch a level
     return out[0], tuple(out[i].view(torch.float32) for i in range(1, 5))

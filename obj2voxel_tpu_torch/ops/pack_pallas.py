@@ -107,6 +107,6 @@ def pack_channels(keys, vals):
         _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "pack_channels")
-    _cuda.LAUNCHES["pack_channels"] += 1
+    _cuda.count_launch("pack_channels")
     return (buf[:n], tuple(buf[i * n:(i + 1) * n].view(torch.float32) for i in range(1, 5)),
             buf[5 * n:5 * n + 1])

@@ -197,5 +197,5 @@ def fused_pass(table, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
         int(bool(ref_weights)), int(bool(textured)), _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "fused_pass")
-    _cuda.LAUNCHES["fused_pass"] += 1
+    _cuda.count_launch("fused_pass")
     return (key, *chans, count)

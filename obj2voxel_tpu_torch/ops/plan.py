@@ -79,24 +79,16 @@ def plan_mesh(vmin, vmax, stride, z_extent, slot_budget, align=2, z_window=None)
     stride:    grid resolution in x/y (sample resolution).
     z_extent:  grid extent in z (== stride except in batch mode).
     slot_budget: target pair-slot count per slab (adaptive slab heights).
-    z_window:  optional (z0, z1) restricting planning to a sub-range -- used
-               by the multi-chip path, where each device owns a z range.
+    z_window:  optional (z0, z1), even-aligned: the slabs tile this range
+               only (parallel/mesh.py, where each device streams a window).
 
     Returns (order, segments):
       order:    (M,) int32 triangle indices, the global gather order
                 (duplicates for slab-spanning triangles), or None if empty.
       segments: list[Segment] in order-of-rows (grouped by slab, ascending k).
     """
-    if z_window is not None:
-        # the window IS the slab: keys are window-local, so the caller must
-        # keep window cells below int32 range (multi-chip path, where each
-        # device owns one window per round)
-        w0, w1 = z_window
-        if (w1 - w0) * stride * stride >= 2**31:
-            raise ValueError("z window too tall for int32 keys")
-        slabs = [(w0, w1)] if w1 > w0 else []
-    else:
-        slabs = plan_adaptive_slabs(vmin, vmax, stride, z_extent, slot_budget, align)
+    slabs = plan_adaptive_slabs(vmin, vmax, stride, z_extent, slot_budget, align,
+                                z_window)
 
     if not slabs:
         return None, []

@@ -100,11 +100,13 @@ def _stage2(vmin, vmax, n_sub, starts, stops, n_slabs, s_pad, group=1):
 
 
 def plan_mesh_device(table, n_sub, stride, z_extent, slot_budget, align=2,
-                     group=1):
+                     group=1, z_window=None):
     """Plan the full pass schedule with the sort on the device.
 
     table: (N_pad, 24) triangle table on the device; n_sub real rows;
-    group: triangles per planning unit (a power of 2 dividing N_pad).
+    group: triangles per planning unit (a power of 2 dividing N_pad);
+    z_window: optional even-aligned (z0, z1): only the window's rows are
+    planned, in slabs that tile it (ops/plan.plan_mesh's z_window).
 
     Returns, like ops/plan.plan_mesh:
       * (order, segments) -- order is a device int64 tensor of GROUP ids
@@ -117,7 +119,8 @@ def plan_mesh_device(table, n_sub, stride, z_extent, slot_budget, align=2,
         raise ValueError(f"group {group} does not divide {table.shape[0]} rows")
     per_row, vmin, vmax = _stage1(table, n_sub, stride, z_extent)
     per_row_h = per_row.cpu().numpy()
-    slabs = slabs_from_rows(per_row_h, stride, z_extent, slot_budget, align)
+    slabs = slabs_from_rows(per_row_h, stride, z_extent, slot_budget, align,
+                            z_window)
     if not slabs:
         return None, []
     if len(slabs) > MAX_DEVICE_SLABS:

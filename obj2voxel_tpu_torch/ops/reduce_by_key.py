@@ -59,6 +59,6 @@ def reduce_by_key(name, keys, chans, *, combine, compact, is_blend=False):
         _cuda.stream_ptr(dev),
     )
     _cuda.check(err, name)
-    _cuda.LAUNCHES[name] += 1
+    _cuda.count_launch(name)
     return (rows[:n], tuple(rows[i * n:(i + 1) * n].view(torch.float32)
                             for i in range(1, 5)), aux[:1])

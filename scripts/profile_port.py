@@ -6,7 +6,9 @@ K6) and supersampled from 2048^3 (MAX), outputs kept on the device; and of
 ten calls of K1, K4, K5 and K6 alone at chip_smoke.py's timing shapes
 (phases 2, 9, 10 and 13), and of the slab merge's combine (`--paths
 combine`: the fused `combine_pack`, K2 and K3 alone, and the engine's call)
-on phase 3's stream and on the sphere's real merge input.
+on phase 3's stream and on the sphere's real merge input; and of one warm
+`voxelize_batch` run of phase 17's 1000 meshes (`--paths batch`: the trace,
+then the host functions by cumulative time under cProfile).
 
     python3 scripts/profile_port.py [--top 15] [--paths untextured,k1,k4]
 
@@ -164,8 +166,33 @@ def profile_combine(table, aabb, top):
             profile_calls(label, fn, top)
 
 
+def profile_batch(top):
+    """One warm `voxelize_batch` of chip_smoke.py phase 17's batch: the
+    trace (device busy, idle share, kernels), then one more run under
+    cProfile for the host functions by cumulative time."""
+    import cProfile
+    import pstats
+
+    import obj2voxel_tpu_torch as pt
+
+    soups = [pt.TriangleSoup.from_vertices(t) for t in cs.batch_meshes()]
+
+    def run():
+        return pt.voxelize_batch(soups, resolution=cs.BATCH_RES)
+
+    results, prof, wall, busy = traced(run)
+    print(f"[batch] {len(soups)} meshes, {sum(x.shape[0] for x, _ in results)} "
+          f"voxels; profiled wall {wall:.2f} ms; device busy {busy:.2f} ms; idle "
+          f"{100 * (1 - busy / wall):.1f}%", flush=True)
+    by_kernel(prof, top)
+    host = cProfile.Profile()
+    host.runcall(run)
+    print("[batch] host functions by cumulative time (cProfile, one run):", flush=True)
+    pstats.Stats(host, stream=sys.stdout).sort_stats("cumulative").print_stats(top)
+
+
 PATHS = ("untextured", "merge-runs", "supersampled", "textured", "k1", "k4",
-         "k5", "k6", "combine")
+         "k5", "k6", "combine", "batch")
 
 
 def main():
@@ -227,6 +254,8 @@ def main():
         table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, 2 * cs.SPHERE_RES)
         profile("supersampled MAX", pt.table_from_numpy(table_np, "cuda"), None,
                 aabb, False, top, stride=2 * cs.SPHERE_RES, do_down=True)
+    if "batch" in paths:
+        profile_batch(top)
     if "textured" in paths:
         table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, cs.SPHERE_RES, textured=True)
         pool, _ = cs.palette_pool()

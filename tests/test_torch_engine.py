@@ -219,6 +219,11 @@ def test_package_imports_no_jax():
         "import sys; import obj2voxel_tpu_torch, obj2voxel_tpu_torch.engine; "
         "import obj2voxel_tpu_torch.api, obj2voxel_tpu_torch.cli; "
         "import obj2voxel_tpu_torch.ops.merge_pallas; "
+        "import obj2voxel_tpu_torch.parallel.mesh, obj2voxel_tpu_torch.ops.morton; "
+        "import obj2voxel_tpu_torch.capi; "
+        "from obj2voxel_tpu_torch import densify, voxelize_batch; "
+        "from obj2voxel_tpu_torch.ops.clip_pallas import "
+        "clip_triangles_to_voxels_pallas; "
         "from obj2voxel_tpu_torch.io import debug_stl, native, obj_loader, "
         "png_io, stl_loader, writers; "
         "from obj2voxel_tpu_torch.utils import meshes; "
