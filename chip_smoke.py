@@ -8,9 +8,11 @@ REPEAT texture; K1's textured passes) under MAX, the untextured table
 through the merge-runs route (K6), and the table at 2048^3 supersampled
 down to 1024^3 under MAX (the CLI's `-r 1024 -u`); 1000 small meshes
 through `voxelize_batch`; the sphere as a soup through `stream_sharded` in
-z windows repeated on the one card; the C shim -- and checks the outputs
-against known voxel counts and digests, the default route, one device, the
-CPU run of the same code, and the closed forms.
+z windows repeated on the one card; the C shim; the sphere, the
+supersampled sphere and the 1000 meshes again with K1's batched form
+(O2V_BATCH=8) -- and checks the outputs against known voxel counts and
+digests, the default route, one device, the unbatched run, the CPU run of
+the same code, and the closed forms.
 
     python3 chip_smoke.py             # all phases; needs one CUDA device
     python3 chip_smoke.py --phases 1,13
@@ -24,7 +26,10 @@ weights) and 11 textured, card against CPU; 6 the unit-cube closed forms;
 7 untextured, 12 textured, 14 merge-runs and 15 supersampled real size; 17
 batch (BASELINE config 5), 18 multi-device windows against one device, 19
 the C shim's capi_test on the card (9 also runs K4 through the public
-`clip_triangles_to_voxels_pallas`); 8 kernel timings beside each kernel's
+`clip_triangles_to_voxels_pallas`); 20 K1's batched form against its plain
+version and against single K1 launches on the sphere's batched passes, then
+the sphere, the supersampled sphere and the batch under O2V_BATCH=8 against
+O2V_BATCH=1, timed in turns; 8 kernel timings beside each kernel's
 bound.  Prints one line per phase, a
 JSON line with the kernels' launches, errors, times and bounds, and as its
 last line {"ok": true, "device": {...}}.  Any failure raises and exits
@@ -88,6 +93,9 @@ FP32_OPS_PER_S = 67e12
 KERNELS = {
     "fused_pass": ("obj2voxel_tpu_torch/csrc/fused_pass.cu",
                    "obj2voxel_tpu/ops/pass_fused.py:251"),
+    # K1's batched form (the TPU kernel's nbatch > 1)
+    "fused_pass_batch": ("obj2voxel_tpu_torch/csrc/fused_pass.cu",
+                         "obj2voxel_tpu/ops/pass_fused.py:251"),
     "segment_combine": ("obj2voxel_tpu_torch/csrc/reduce_by_key.cu",
                         "obj2voxel_tpu/ops/combine_pallas.py:126"),
     "pack_exact": ("obj2voxel_tpu_torch/csrc/reduce_by_key.cu",
@@ -103,7 +111,9 @@ KERNELS = {
                    "obj2voxel_tpu/ops/merge_pallas.py:268"),
 }
 # the kernels each main path must launch (sharded: BLEND in 2 windows, then
-# MAX in 3 under O2V_MERGE_RUNS=1; clip_helper: the public per-pair clip)
+# MAX in 3 under O2V_MERGE_RUNS=1; clip_helper: the public per-pair clip;
+# batched: the sphere, the supersampled sphere and the batch under
+# O2V_BATCH=8, whose lone remainders still run single K1 passes)
 PATH_KERNELS = {
     "untextured": ("fused_pass", "combine_pack"),
     "textured": ("fused_pass", "combine_pack"),
@@ -112,13 +122,17 @@ PATH_KERNELS = {
     "batch": ("fused_pass", "combine_pack"),
     "sharded": ("fused_pass", "merge_runs", "combine_pack"),
     "clip_helper": ("clip_pairs",),
+    "batched": ("fused_pass", "fused_pass_batch", "combine_pack"),
 }
 # the kernels a main path must not launch: every merge runs K2 and K3 as
 # combine_pack, and every pass clips in K1
 PATH_ABSENT = {path: ("segment_combine", "pack_exact") for path in PATH_KERNELS}
-for path in ("textured", "batch", "sharded"):
+for path in ("textured", "batch", "sharded", "batched"):
     PATH_ABSENT[path] += ("clip_pairs",)
-ALL_PHASES = set(range(1, 20))
+for path in PATH_KERNELS:
+    if "fused_pass_batch" not in PATH_KERNELS[path]:
+        PATH_ABSENT[path] += ("fused_pass_batch",)
+ALL_PHASES = set(range(1, 21))
 
 
 def fail(msg):
@@ -1460,6 +1474,214 @@ def phase_capi():
           "ERR_NO_INPUT path checked")
 
 
+def sphere_batches(table, aabb):
+    """The plan-ordered sphere table and the engine's first batched launch
+    of 8, 4 and 2 2^21-slot passes under O2V_BATCH=8 (`engine._waves`):
+    [(expand, budget, [fused_pass args, ...], slabs)]; at least one spans
+    two slabs."""
+    from obj2voxel_tpu_torch.engine import WAVE_CAP_ROWS, _waves
+    from obj2voxel_tpu_torch.ops.plan_device import gather_ordered, plan_mesh_device
+
+    order, segs = plan_mesh_device(table, aabb[0].shape[0], SPHERE_RES,
+                                   SPHERE_RES, 4 * BUDGET, group=8)
+    ordered = gather_ordered(table, order, segs[-1].r1, 8)
+    slabs = {}
+    for seg in segs:
+        slabs.setdefault((seg.z_lo, seg.z_hi), []).append(seg)
+    picked = {}
+    for _, dispatches in _waves(list(slabs.items()), SPHERE_RES, BUDGET,
+                                WAVE_CAP_ROWS, 8):
+        for expand, budget, _, items in dispatches:
+            if budget == BUDGET and len(items) > 1:
+                picked.setdefault(len(items), (
+                    expand, budget, [d for _, _, d in items],
+                    len({slab for slab, _, _ in items})))
+    if sorted(picked) != [2, 4, 8] or max(b[3] for b in picked.values()) < 2:
+        fail(f"sphere schedule: no batched launches of 8, 4 and 2 passes across "
+             f"slabs ({picked})")
+    return ordered, [picked[n] for n in (8, 4, 2)]
+
+
+def compare_batch(got, want, what):
+    """Batched K1 outputs against (B, budget) stacks of the same: every
+    count, key and channel bit for bit; returns the live pairs."""
+    if not torch.equal(got[5], want[5]):
+        fail(f"{what}: counts {got[5].tolist()} != {want[5].tolist()}")
+    for g, w, name in zip(got, want, ("keys", "w", "wr", "wg", "wb")):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            fail(f"{what}: {name} differ")
+    return int(want[5].sum().item())
+
+
+def phase_k1_batch(stats):
+    """K1's batched form on the sphere's batched launches of 8, 4 and 2
+    passes, with and without ref_weights: bit for bit against its plain
+    version and against one K1 launch a pass; then its time for 8 passes
+    beside 8 single launches in turns, its plain version and its bound."""
+    from obj2voxel_tpu_torch.ops.clip_pallas import pass_pairs
+    from obj2voxel_tpu_torch.ops.pass_fused import (
+        fused_pass, fused_pass_batch, fused_pass_batch_ref,
+    )
+
+    t0 = time.perf_counter()
+    table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES)
+    ordered, batches = sphere_batches(torch.from_numpy(table_np).cuda(), aabb)
+    details = []
+    for expand, budget, passes, n_slabs in batches:
+        for ref in (False, True):
+            kw = dict(expand=expand, budget=budget, ref_weights=ref)
+            got = fused_pass_batch(ordered, passes, **kw)
+            what = f"K1 batch of {len(passes)} at expand {expand} ref_weights={ref}"
+            n = compare_batch(got, fused_pass_batch_ref(ordered, passes, **kw),
+                              f"{what} vs plain")
+            singles = [fused_pass(ordered, *p, **kw) for p in passes]
+            compare_batch(got, [torch.stack([o[j] for o in singles]) for j in range(5)]
+                          + [torch.cat([o[5] for o in singles])], f"{what} vs single")
+            details.append(f"B{len(passes)} e{expand} {n_slabs} slabs"
+                           f"{' ref_weights' if ref else ''}: {n} pairs")
+    expand, budget, passes, _ = batches[0]
+    kw = dict(expand=expand, budget=budget)
+    batch_ms, single_ms, turns = in_turns(
+        lambda: fused_pass_batch(ordered, passes, **kw),
+        lambda: [fused_pass(ordered, *p, **kw) for p in passes])
+    counts = fused_pass_batch(ordered, passes, **kw)[5].tolist()
+    stats["fused_pass_batch"].update(
+        ms=batch_ms,
+        plain_ms=cuda_ms(lambda: fused_pass_batch_ref(ordered, passes, **kw), reps=1),
+        library_ms=None, max_abs_err=0.0)
+    # as phase 2 counts one pass: the 12 columns read of each row, 20 B per
+    # live pair written and the count; the clip, the AABB and rank decode
+    # and the premultiply per slot in its AABB, over the 8 passes
+    n_bytes = n_ops = 0
+    table_t = ordered.T.contiguous()
+    for p, n in zip(passes, counts):
+        tri, vox, _, _, valid = pass_pairs(table_t, *p, wide_local=False, **kw)
+        n_bytes += p[1] * 48 + n * 20 + 4
+        n_ops += clip_flops(tri, vox, valid, 3) + 28 * int(valid.sum())
+        del tri, vox, valid
+    bound(stats, "fused_pass_batch", n_bytes, n_ops)
+    phase("20 K1 fused_pass_batch vs plain and single K1 launches", t0,
+          "; ".join(details) + f"; 8 passes in {batch_ms:.4f} ms, 8 single "
+          f"launches {single_ms:.4f} ms in turns {[round(x, 4) for x in turns]}")
+
+
+def slab_outputs(table, aabb, is_blend, **kw):
+    """One run of a sphere path: each slab's (xyz, argb) on the device."""
+    return [(xyz[:c], argb[:c]) for xyz, argb, c in
+            sphere_slabs(table, None, aabb, is_blend, **kw)]
+
+
+def batched_env(cap):
+    """Set O2V_BATCH (None: unset it); returns the previous value."""
+    import os
+
+    before = os.environ.get("O2V_BATCH")
+    if cap is None:
+        os.environ.pop("O2V_BATCH", None)
+    else:
+        os.environ["O2V_BATCH"] = str(cap)
+    return before
+
+
+def batched_path(name, run, same):
+    """One path under O2V_BATCH=8: the launch counts reset just before one
+    run and read just after, gated (K1's batched form launched, fewer K1
+    dispatches than passes); `same(out)` checks the run's output; then
+    O2V_BATCH=1 and =8 timed in turns (1, 8, 8, 1, 1, 8).  Returns the
+    launches and a detail string."""
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch.engine import WAVE_STATS
+
+    batched_env(8)
+    pt.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    launches = dict(pt.LAUNCHES)
+    wave = dict(WAVE_STATS)
+    peak = {8: torch.cuda.max_memory_allocated() / 2**30}
+    check_path("batched", launches)
+    k1 = launches["fused_pass"] + launches["fused_pass_batch"]
+    if k1 >= wave["passes"] or k1 != wave["dispatches"]:
+        fail(f"batched {name}: {k1} K1 dispatches for {wave['passes']} passes "
+             f"({launches}, {wave})")
+    same(out)
+    del out
+    times = {1: [], 8: []}
+    for cap in (1, 8, 8, 1, 1, 8):
+        batched_env(cap)
+        if cap not in peak:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times[cap].append(time.perf_counter() - t)
+        peak.setdefault(cap, torch.cuda.max_memory_allocated() / 2**30)
+    med = {cap: sorted(t)[1] for cap, t in times.items()}
+    return launches, (
+        f"{name}: {wave}; launches {launches}; in turns O2V_BATCH=1 {med[1]:.4f} s "
+        f"(runs {[round(x, 4) for x in times[1]]}), O2V_BATCH=8 {med[8]:.4f} s "
+        f"(runs {[round(x, 4) for x in times[8]]}): {med[8] / med[1]:.3f}x; peak "
+        f"{peak[1]:.2f} GiB unbatched, {peak[8]:.2f} GiB batched")
+
+
+def phase_batched_paths(info):
+    """The sphere (BLEND), the supersampled sphere (2048^3 -> 1024^3 MAX)
+    and phase 17's batch under O2V_BATCH=8: each with the bytes of
+    O2V_BATCH=1 (the sphere's 4,936,255 voxels; the batch's count and
+    sha256 of the CPU runs), K1's batched form launched and fewer K1
+    dispatches than passes; both settings timed in turns."""
+    import obj2voxel_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    before = batched_env(None)
+    details, total = [], {name: 0 for name in KERNELS}
+    try:
+        for name, res, is_blend, kw in (
+                ("sphere", SPHERE_RES, True, {}),
+                ("supersampled sphere", 2 * SPHERE_RES, False,
+                 dict(stride=2 * SPHERE_RES, do_down=True))):
+            table_np, aabb = sphere_table(SPHERE_TRIS, res)
+            table = pt.table_from_numpy(table_np, "cuda")
+            batched_env(1)
+            want = slab_outputs(table, aabb, is_blend, **kw)
+            n_want = sum(x.shape[0] for x, _ in want)
+            if name == "sphere" and n_want != SPHERE_VOXELS:
+                fail(f"sphere: {n_want} voxels, want {SPHERE_VOXELS}")
+
+            def same(got, want=want, name=name):
+                if len(got) != len(want) or not all(
+                        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                        for a, b in zip(got, want)):
+                    fail(f"batched {name}: slabs differ from O2V_BATCH=1's")
+
+            launches, detail = batched_path(
+                name, lambda: slab_outputs(table, aabb, is_blend, **kw), same)
+            details.append(f"{detail}; {n_want} voxels, bytes equal to O2V_BATCH=1")
+            for k in total:
+                total[k] += launches[k]
+            del table, want
+
+        soups = [pt.TriangleSoup.from_vertices(t) for t in batch_meshes()]
+
+        def same_batch(results):
+            voxels, nonempty, digest = batch_digest(results)
+            if (voxels, nonempty, digest) != (BATCH_VOXELS, BATCH_MESHES, BATCH_SHA256):
+                fail(f"batched batch: {voxels} voxels, {nonempty} non-empty, sha256 "
+                     f"{digest}; want {BATCH_VOXELS}, {BATCH_SHA256}")
+
+        launches, detail = batched_path(
+            "batch", lambda: pt.voxelize_batch(soups, resolution=BATCH_RES),
+            same_batch)
+        details.append(f"{detail}; {BATCH_VOXELS} voxels, sha256 of the CPU runs")
+        for k in total:
+            total[k] += launches[k]
+    finally:
+        batched_env(before)
+    phase("20 batched paths under O2V_BATCH=8 (sphere, supersampled sphere, "
+          "config 5)", t0, "; ".join(details) + f"; on {info}")
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))))
@@ -1486,7 +1708,8 @@ def main():
     stats = {name: {} for name in (*KERNELS, "fused_pass_textured")}
     by_path = {path: {name: 0 for name in KERNELS} for path in PATH_KERNELS}
     for num, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3), (16, phase_rbk),
-                    (9, phase_k4), (10, phase_k5), (13, phase_k6)):
+                    (9, phase_k4), (10, phase_k5), (13, phase_k6),
+                    (20, phase_k1_batch)):
         if want & {num, 8}:
             launches = fn(stats)
             if num == 9:
@@ -1511,6 +1734,8 @@ def main():
         by_path["sharded"] = phase_sharded(info)
     if 19 in want:
         phase_capi()
+    if 20 in want:
+        by_path["batched"] = phase_batched_paths(info)
     if 8 in want:
         for name, s in stats.items():
             lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f} ms"

@@ -39,6 +39,16 @@
 // With `ref_weights` (the TPU kernel's variant of the same name, the
 // engine's input-area weights) an occupied voxel weighs the area of the
 // whole table triangle instead of its clipped piece.
+//
+// The batched form (`o2v_fused_pass_batch`, the TPU kernel's grid
+// (nbatch, blocks)) runs up to kMaxBatch untextured passes of one shape
+// (expand, budget, stride, ref_weights; never `wide_local`) in one launch of
+// a (tiles, passes) grid.  Each pass's (r0, n_rows, local_base, z_lo, z_hi)
+// come by value in a kernel parameter, so nothing is uploaded, and each pass
+// reads its own table rows in place (the TPU version concatenates the row
+// slices first).  The tile body is the single pass's, so pass b's outputs
+// equal what one launch of `o2v_fused_pass` gives for it, bit for bit; the
+// compaction then runs one scan block a pass and a (tiles, passes) scatter.
 #include "o2v_clip.cuh"
 #include "o2v_compact.cuh"
 
@@ -117,17 +127,17 @@ __host__ __device__ constexpr int pass_smem_bytes() {
   return clip_scratch_bytes(kChannels<TEXTURED>, COMPACT_TILE);
 }
 
-// Dynamic shared memory: the polygon scratch of every thread, then (after
-// the clip) the queue's results, 5 words a queue entry.
+// Tile blockIdx.x of one pass: its slot-ordered rows into keys and c0..c3
+// and its live count into tile_counts[blockIdx.x].  Dynamic shared memory:
+// the polygon scratch of every thread, then (after the clip) the queue's
+// results, 5 words a queue entry.
 template <bool TEXTURED>
-__global__ void __launch_bounds__(COMPACT_TILE)
-fused_pass_kernel(const float* __restrict__ table, int n_table_rows, int r0,
-                  int n_rows, int local_base, int z_lo, int z_hi, int stride,
-                  int log2_expand, int budget, int wide_local,
-                  int ref_weights, int* __restrict__ keys,
-                  float* __restrict__ c0, float* __restrict__ c1,
-                  float* __restrict__ c2, float* __restrict__ c3,
-                  int* __restrict__ tile_counts) {
+__device__ __forceinline__ void pass_tile(
+    const float* __restrict__ table, int n_table_rows, int r0, int n_rows,
+    int local_base, int z_lo, int z_hi, int stride, int log2_expand,
+    int budget, int wide_local, int ref_weights, int* __restrict__ keys,
+    float* __restrict__ c0, float* __restrict__ c1, float* __restrict__ c2,
+    float* __restrict__ c3, int* __restrict__ tile_counts) {
   constexpr int NCH = kChannels<TEXTURED>;
   static_assert(pass_smem_bytes<TEXTURED>() >=
                     5 * COMPACT_TILE * static_cast<int>(sizeof(float)),
@@ -240,6 +250,58 @@ fused_pass_kernel(const float* __restrict__ table, int n_table_rows, int r0,
 }
 
 template <bool TEXTURED>
+__global__ void __launch_bounds__(COMPACT_TILE)
+fused_pass_kernel(const float* __restrict__ table, int n_table_rows, int r0,
+                  int n_rows, int local_base, int z_lo, int z_hi, int stride,
+                  int log2_expand, int budget, int wide_local,
+                  int ref_weights, int* __restrict__ keys,
+                  float* __restrict__ c0, float* __restrict__ c1,
+                  float* __restrict__ c2, float* __restrict__ c3,
+                  int* __restrict__ tile_counts) {
+  pass_tile<TEXTURED>(table, n_table_rows, r0, n_rows, local_base, z_lo, z_hi,
+                      stride, log2_expand, budget, wide_local, ref_weights,
+                      keys, c0, c1, c2, c3, tile_counts);
+}
+
+constexpr int kMaxBatch = 8;
+
+// The per-pass scalars of a batched launch, a kernel parameter.
+struct PassBatch {
+  int r0[kMaxBatch], n_rows[kMaxBatch], local_base[kMaxBatch];
+  int z_lo[kMaxBatch], z_hi[kMaxBatch];
+};
+
+// Grid (tiles, passes): block (t, b) runs tile t of pass b.  Row b of each
+// (passes, budget) output, and of the (passes, tiles) counts, is pass b's.
+__global__ void __launch_bounds__(COMPACT_TILE)
+fused_pass_batch_kernel(const float* __restrict__ table, int n_table_rows,
+                        const PassBatch p, int stride, int log2_expand,
+                        int budget, int ref_weights, int* __restrict__ keys,
+                        float* __restrict__ c0, float* __restrict__ c1,
+                        float* __restrict__ c2, float* __restrict__ c3,
+                        int* __restrict__ tile_counts) {
+  const int b = blockIdx.y;
+  // select with static indices: a run-time index into a parameter array
+  // could make the compiler copy it to local memory
+  int r0 = 0, n_rows = 0, local_base = 0, z_lo = 0, z_hi = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxBatch; ++i) {
+    if (i == b) {
+      r0 = p.r0[i];
+      n_rows = p.n_rows[i];
+      local_base = p.local_base[i];
+      z_lo = p.z_lo[i];
+      z_hi = p.z_hi[i];
+    }
+  }
+  const size_t off = static_cast<size_t>(b) * budget;
+  pass_tile<false>(table, n_table_rows, r0, n_rows, local_base, z_lo, z_hi,
+                   stride, log2_expand, budget, 0, ref_weights, keys + off,
+                   c0 + off, c1 + off, c2 + off, c3 + off,
+                   tile_counts + static_cast<size_t>(b) * gridDim.x);
+}
+
+template <bool TEXTURED>
 cudaError_t launch_pass(const float* table, int n_table_rows, int r0,
                         int n_rows, int local_base, int z_lo, int z_hi,
                         int stride, int log2_expand, int budget,
@@ -288,5 +350,45 @@ extern "C" int o2v_fused_pass(int* keys_out, float* c0_out, float* c1_out,
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(compact_from_tile_counts(
       s_keys, s0, s1, s2, s3, keys_out, c0_out, c1_out, c2_out, c3_out,
-      count_out, tile_counts, tile_offsets, budget, stream));
+      count_out, tile_counts, tile_offsets, budget, 1, stream));
+}
+
+// n_pass untextured passes of one shape in one launch.  `scal` (host) holds
+// (r0, n_rows, local_base, z_lo, z_hi) for each pass; every output, and
+// each slot-ordered scratch, is (n_pass, budget), the tile counts and
+// offsets (n_pass, tiles) and the counts (n_pass,).
+extern "C" int o2v_fused_pass_batch(
+    int* keys_out, float* c0_out, float* c1_out, float* c2_out,
+    float* c3_out, int* counts_out, int* s_keys, float* s0, float* s1,
+    float* s2, float* s3, int* tile_counts, int* tile_offsets,
+    const float* table, int n_table_rows, const int* scal, int n_pass,
+    int stride, int log2_expand, int budget, int ref_weights,
+    void* stream_ptr) {
+  if (n_pass < 1 || n_pass > kMaxBatch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  PassBatch p{};
+  for (int b = 0; b < n_pass; ++b) {
+    p.r0[b] = scal[5 * b];
+    p.n_rows[b] = scal[5 * b + 1];
+    p.local_base[b] = scal[5 * b + 2];
+    p.z_lo[b] = scal[5 * b + 3];
+    p.z_hi[b] = scal[5 * b + 4];
+  }
+  constexpr int smem = pass_smem_bytes<false>();
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_pass_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_tiles = (budget + COMPACT_TILE - 1) / COMPACT_TILE;
+  fused_pass_batch_kernel<<<dim3(n_tiles, n_pass), COMPACT_TILE, smem,
+                            stream>>>(table, n_table_rows, p, stride,
+                                      log2_expand, budget, ref_weights,
+                                      s_keys, s0, s1, s2, s3, tile_counts);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(compact_from_tile_counts(
+      s_keys, s0, s1, s2, s3, keys_out, c0_out, c1_out, c2_out, c3_out,
+      counts_out, tile_counts, tile_offsets, budget, n_pass, stream));
 }

@@ -1,5 +1,4 @@
-// Order-preserving stream compaction shared by the fused pass (K1) and the
-// exact pack (K3).
+// Order-preserving stream compaction of the fused pass (K1).
 //
 // A stream of (key, w, r, g, b) rows is cut into tiles of COMPACT_TILE rows.
 // The producer writes each tile's live count (key != INVALID); one block
@@ -7,6 +6,11 @@
 // kernel then moves each live row to offset[tile] + its rank inside the tile
 // and fills [total, n) with (INVALID, 0).  Input order is kept exactly: MAX
 // ties downstream depend on it, so no atomics-based append is used.
+//
+// Several streams of one length n compact in the same two launches (the
+// batched fused pass): stream p's rows start at p * n in every array, its
+// tile counts and offsets at p * tiles, its total at total[p]; the scan
+// runs one block a stream, the scatter a (tiles, streams) grid.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,22 +45,15 @@ __device__ __forceinline__ int block_rank(bool live, int* s_warp, int& total) {
   return s_warp[warp] + rank;
 }
 
-__global__ void __launch_bounds__(COMPACT_TILE)
-tile_count_kernel(const int* __restrict__ keys, int* __restrict__ tile_counts,
-                  int n) {
-  __shared__ int s_warp[COMPACT_TILE / 32 + 1];
-  const int i = blockIdx.x * COMPACT_TILE + threadIdx.x;
-  const bool live = i < n && keys[i] != O2V_INV;
-  int total;
-  block_rank(live, s_warp, total);
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
-}
-
-// One block of SCAN_THREADS walks the tile counts in chunks, carrying the
-// running base between chunks.
+// One block of SCAN_THREADS a stream (blockIdx.x) walks its n tile counts
+// in chunks, carrying the running base between chunks.
 __global__ void __launch_bounds__(SCAN_THREADS)
 exclusive_scan_kernel(const int* __restrict__ counts, int* __restrict__ offsets,
                       int* __restrict__ total_out, int n) {
+  const size_t stream_off = static_cast<size_t>(blockIdx.x) * n;
+  counts += stream_off;
+  offsets += stream_off;
+  total_out += blockIdx.x;
   __shared__ int s_warp[SCAN_THREADS / 32];
   __shared__ int s_base;
   const int lane = threadIdx.x & 31;
@@ -100,6 +97,20 @@ scatter_kernel(const int* __restrict__ keys, const float* __restrict__ w,
                float* __restrict__ og, float* __restrict__ ob,
                const int* __restrict__ tile_offsets,
                const int* __restrict__ total_ptr, int n) {
+  // stream blockIdx.y
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * n;
+  keys += row0;
+  w += row0;
+  r += row0;
+  g += row0;
+  b += row0;
+  ok += row0;
+  ow += row0;
+  orr += row0;
+  og += row0;
+  ob += row0;
+  tile_offsets += static_cast<size_t>(blockIdx.y) * gridDim.x;
+  total_ptr += blockIdx.y;
   __shared__ int s_warp[COMPACT_TILE / 32 + 1];
   const int i = blockIdx.x * COMPACT_TILE + threadIdx.x;
   const int k = i < n ? keys[i] : O2V_INV;
@@ -123,19 +134,19 @@ scatter_kernel(const int* __restrict__ keys, const float* __restrict__ w,
   }
 }
 
-// Scan the tile counts and scatter; the tile counts must already be written
-// (by tile_count_kernel or a producer that counts its own tiles).
+// Scan the tile counts and scatter `n_streams` streams of n rows; the
+// producer must already have written each tile's live count.
 inline cudaError_t compact_from_tile_counts(
     const int* keys, const float* w, const float* r, const float* g,
     const float* b, int* ok, float* ow, float* orr, float* og, float* ob,
     int* count_out, const int* tile_counts, int* tile_offsets, int n,
-    cudaStream_t stream) {
+    int n_streams, cudaStream_t stream) {
   const int n_tiles = (n + COMPACT_TILE - 1) / COMPACT_TILE;
-  exclusive_scan_kernel<<<1, SCAN_THREADS, 0, stream>>>(
+  exclusive_scan_kernel<<<n_streams, SCAN_THREADS, 0, stream>>>(
       tile_counts, tile_offsets, count_out, n_tiles);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  scatter_kernel<<<n_tiles, COMPACT_TILE, 0, stream>>>(
+  scatter_kernel<<<dim3(n_tiles, n_streams), COMPACT_TILE, 0, stream>>>(
       keys, w, r, g, b, ok, ow, orr, og, ob, tile_offsets, count_out, n);
   return cudaGetLastError();
 }

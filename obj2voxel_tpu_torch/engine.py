@@ -40,6 +40,23 @@ are even, so no 2x2x2 cell straddles two slabs.  Supersampling bypasses the
 merge-runs route, as in the JAX package: its merge sorts after the
 downscale.
 
+Batched passes (O2V_BATCH, obj2voxel_tpu/engine.py:1174-1305; off by
+default, as in the JAX package).  With O2V_BATCH=B > 1, on a CUDA device
+(or anywhere under O2V_BATCH_FORCE=1) and for an untextured mesh, the
+passes of a wave's multi-pass slabs that are not `wide_local` and whose
+budget is a multiple of BATCH_BLOCK group by (expand, budget), in sorted
+order, into launches of K1's batched form (`fused_pass_batch`) of 8, 4 or
+2 passes up to B; a lone remainder runs as a single pass.  Passes of
+different slabs batch together.  Each slab still merges its passes in pass
+order, so the output is the unbatched one, byte for byte.  `WAVE_STATS`
+counts the last call's passes, dispatches and batched passes.
+
+Knobs, read as the JAX package reads them: O2V_MAX_PASS_BUDGET (at import:
+MAX_PASS_BUDGET), and per `stream_slabs` call O2V_WAVE_CAP (slots in
+flight a wave), O2V_HOST_PLAN=1 (plan on the host), O2V_GROUP (triangles
+per planning unit), O2V_BATCH, O2V_BATCH_FORCE and O2V_TIMING=1
+(`[o2v-timing]` lines of the plan, each wave and its merges on stdout).
+
 Batch mode (`voxelize_batch`, obj2voxel_tpu/engine.py:1501-1587) stacks many
 small meshes along z, each normalized to its own grid, into one
 `voxelize_grid` stream, and splits the output by mesh once, after it (a
@@ -54,6 +71,7 @@ plain version, on a CUDA tensor it launches the hand-written kernel.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -67,7 +85,7 @@ from .ops.combine import (
 )
 from .ops.combine_pallas import combine_pack
 from .ops.merge_pallas import MAX_RUNS, merge_runs as merge_sorted_runs, plan_runs
-from .ops.pass_fused import fused_pass
+from .ops.pass_fused import fused_pass, fused_pass_batch
 from .ops.plan import plan_mesh
 from .ops.plan_device import gather_ordered, plan_mesh_device
 from .ops.subdivide import subdivide_soup
@@ -76,14 +94,14 @@ from .utils import debug as _dbg
 from .utils.log import log as _log
 
 __all__ = [
-    "MAX_PASS_BUDGET", "TriangleSoup", "build_tri_table", "densify",
-    "plan_fold_chunks", "stream_slabs", "voxelize_batch", "voxelize_grid",
-    "voxelize_soup",
+    "MAX_PASS_BUDGET", "TriangleSoup", "WAVE_STATS", "build_tri_table",
+    "densify", "plan_fold_chunks", "stream_slabs", "voxelize_batch",
+    "voxelize_grid", "voxelize_soup",
 ]
 
 #: Maximum pair slots per pass (the effective budget is
-#: min(pair_tile, max_pass_budget)).
-MAX_PASS_BUDGET = 1 << 21
+#: min(pair_tile, max_pass_budget)); O2V_MAX_PASS_BUDGET sets it at import.
+MAX_PASS_BUDGET = int(os.environ.get("O2V_MAX_PASS_BUDGET", 1 << 21))
 
 #: Allowed pass sizes; the scheduler covers each segment greedily with full
 #: rungs (obj2voxel_tpu/engine.py BUDGET_LADDER).
@@ -94,11 +112,22 @@ BUDGET_LADDER = (1 << 14, 1 << 17, 1 << 21, 1 << 22, 1 << 23)
 MERGE_CAP = 1 << 25
 
 #: Pass slots dispatched per wave before the counts are read back (a memory
-#: bound: each slot holds 20 bytes until the slab merges).
+#: bound: each slot holds 20 bytes until the slab merges, a batched pass's
+#: until every slab of its launch merges); O2V_WAVE_CAP sets it per call.
 WAVE_CAP_ROWS = 1 << 27
 
-#: Triangles per planning unit for the device planner.
+#: Triangles per planning unit for the device planner; O2V_GROUP sets it
+#: per call.
 PLAN_GROUP = 8
+
+#: A batched pass's budget is a multiple of this: the JAX package's gate,
+#: the TPU kernel's block (obj2voxel_tpu/ops/pass_fused.py BLOCK).
+BATCH_BLOCK = 8192
+
+#: The last `stream_slabs` call's passes, dispatches (single passes and
+#: batched launches) and passes run batched (obj2voxel_tpu/engine.py
+#: WAVE_STATS); not thread-safe, like the JAX package's.
+WAVE_STATS = {"passes": 0, "dispatches": 0, "batched": 0}
 
 
 def _pow2_at_least(n: int, minimum: int = 256) -> int:
@@ -142,6 +171,44 @@ def _schedule_passes(segments, max_budget):
                 for j in range(n_sub):
                     passes.append((budget, budget, row, 1, j * budget, True))
     return passes
+
+
+def _waves(slab_list, stride, max_budget, wave_cap, batch_cap):
+    """The host schedule of `stream_slabs`, one wave at a time: a wave
+    takes slabs until their passes' budgets reach `wave_cap` (and at least
+    one).  Yields (slabs, dispatches): slabs [(z_lo, z_hi, n_passes)];
+    dispatches [(expand, budget, wide_local, [(slab, pass, desc)])] in
+    dispatch order, desc being `fused_pass`'s (r0, n_rows, local_base, z_lo,
+    z_hi, stride).  Each pass that cannot batch runs alone, in wave order;
+    then, when batch_cap > 1, the passes of multi-pass slabs that are not
+    `wide_local` and whose budget is a multiple of BATCH_BLOCK group by
+    (expand, budget) in sorted order and are cut into launches of 8, 4 or 2
+    passes up to batch_cap, a lone remainder alone
+    (obj2voxel_tpu/engine.py:1210-1305)."""
+    i = 0
+    while i < len(slab_list):
+        slabs, dispatches, groups, rows = [], [], {}, 0
+        while i < len(slab_list) and (not slabs or rows < wave_cap):
+            (z_lo, z_hi), segs = slab_list[i]
+            i += 1
+            passes = _schedule_passes(segs, max_budget)
+            for pi, (expand, budget, r0, n_rows, local_base, wide) in enumerate(passes):
+                item = (len(slabs), pi, (r0, n_rows, local_base, z_lo, z_hi, stride))
+                if (batch_cap > 1 and len(passes) > 1 and not wide
+                        and budget % BATCH_BLOCK == 0):
+                    groups.setdefault((expand, budget), []).append(item)
+                else:
+                    dispatches.append((expand, budget, wide, [item]))
+                rows += budget
+            slabs.append((z_lo, z_hi, len(passes)))
+        for (expand, budget), items in sorted(groups.items()):
+            j = 0
+            while j < len(items):
+                size = next((c for c in (8, 4, 2)
+                             if c <= batch_cap and j + c <= len(items)), 1)
+                dispatches.append((expand, budget, False, items[j:j + size]))
+                j += size
+        yield slabs, dispatches
 
 
 def plan_fold_chunks(sizes, cap):
@@ -278,7 +345,7 @@ def voxelize_soup(
     pair_tile: int = PAIR_TILE,
     max_pass_budget: int = MAX_PASS_BUDGET,
     subdivide: bool = True,
-    group: int = PLAN_GROUP,
+    group: int | None = None,
     merge_runs: bool | None = None,
     input_area_weights: bool | None = None,
 ):
@@ -348,7 +415,7 @@ def voxelize_grid(
     do_down: bool = False,
     pair_tile: int = PAIR_TILE,
     max_pass_budget: int = MAX_PASS_BUDGET,
-    group: int = PLAN_GROUP,
+    group: int | None = None,
     merge_runs: bool | None = None,
     input_area_weights: bool | None = None,
 ):
@@ -383,7 +450,7 @@ def stream_slabs(
     pair_tile: int = PAIR_TILE,
     max_pass_budget: int = MAX_PASS_BUDGET,
     device_outputs: bool = False,
-    group: int = PLAN_GROUP,
+    group: int | None = None,
     merge_runs: bool | None = None,
     input_area_weights: bool | None = None,
     z_window: tuple[int, int] | None = None,
@@ -405,27 +472,52 @@ def stream_slabs(
     `z_window` = (z0, z1), even-aligned, streams only the slabs that tile
     that range of the grid (parallel/mesh.py gives each device one).
 
+    `group` (default: O2V_GROUP, else PLAN_GROUP) is the device planner's
+    triangles per planning unit.  The batched passes and the other knobs
+    are the module docstring's; the environment is read once per call.
+
     Yields (xyz, argb) numpy arrays per slab, or with device_outputs=True
     (xyz, argb, count) with xyz/argb still on the device, count-padded."""
+    timing = os.environ.get("O2V_TIMING") == "1"
+    t0 = time.perf_counter()
     if merge_runs is None:
         merge_runs = os.environ.get("O2V_MERGE_RUNS") == "1"
     if input_area_weights is None:
         input_area_weights = os.environ.get("O2V_WEIGHT_MODE") == "input_area"
+    if group is None:
+        group = int(os.environ.get("O2V_GROUP", PLAN_GROUP))
+    wave_cap = int(os.environ.get("O2V_WAVE_CAP", WAVE_CAP_ROWS))
+    batch_cap = int(os.environ.get("O2V_BATCH", 1))
     merge_runs = bool(merge_runs) and not do_down
+    ref_weights = bool(input_area_weights)
     vmin_h, vmax_h = aabb_host
     n_sub = vmin_h.shape[0]
     max_budget = min(pair_tile, max_pass_budget)
     slot_budget = 4 * max_budget
     textured = pool is not None and pool[0].shape[0] > 1
+    can_batch = batch_cap > 1 and not textured and (
+        tri_table.device.type == "cuda"
+        or os.environ.get("O2V_BATCH_FORCE") == "1")
+    WAVE_STATS.update(passes=0, dispatches=0, batched=0)
 
-    order, segments = plan_mesh_device(
-        tri_table, n_sub, stride, z_extent, slot_budget, group=group,
-        z_window=z_window,
-    )
-    if order is None and segments is not None:
-        return  # empty mesh
+    order = segments = None
+    if os.environ.get("O2V_HOST_PLAN") != "1":
+        if timing:
+            # the JAX package's slab-count estimate from a strided sample
+            step = max(1, n_sub >> 18)
+            ext = (vmax_h[::step].astype(np.int64)
+                   - vmin_h[::step].astype(np.int64)).clip(min=0)
+            est = float(ext.prod(axis=1, dtype=np.int64).sum()) * step
+            print(f"[o2v-timing]   hint {(time.perf_counter() - t0) * 1000:.0f}ms"
+                  f" (est {est:.3g} -> {int(est / slot_budget) + 1})", flush=True)
+        order, segments = plan_mesh_device(
+            tri_table, n_sub, stride, z_extent, slot_budget, group=group,
+            z_window=z_window,
+        )
+        if order is None and segments is not None:
+            return  # empty mesh
     if order is None:
-        # too many slabs for the device planner: plan on the host
+        # asked for, or too many slabs for the device planner: plan on the host
         order_np, segments = plan_mesh(vmin_h, vmax_h, stride, z_extent, slot_budget,
                                        z_window=z_window)
         if order_np is None:
@@ -434,53 +526,79 @@ def stream_slabs(
         group = 1
     table = gather_ordered(tri_table, order, segments[-1].r1, group)
     del order
+    if timing:
+        print(f"[o2v-timing] plan+gather {(time.perf_counter() - t0) * 1000:.0f}ms "
+              f"rows={segments[-1].r1} segments={len(segments)}", flush=True)
 
     by_slab: dict[tuple[int, int], list] = {}
     for seg in segments:
         by_slab.setdefault((seg.z_lo, seg.z_hi), []).append(seg)
-    slab_list = list(by_slab.items())
 
-    i = 0
-    while i < len(slab_list):
-        # one wave: every pass of several slabs, then ONE counts read-back
-        wave, wave_rows = [], 0
-        while i < len(slab_list) and (not wave or wave_rows < WAVE_CAP_ROWS):
-            (z_lo, z_hi), slab_segs = slab_list[i]
-            i += 1
-            outs = []
-            for expand, budget, r0, n_rows, local_base, wide in _schedule_passes(
-                slab_segs, max_budget
-            ):
-                args = (r0, n_rows, local_base, z_lo, z_hi, stride)
-                kw = dict(expand=expand, budget=budget, wide_local=wide,
-                          ref_weights=bool(input_area_weights))
-                outs.append(_textured_pass(table, pool, *args, **kw) if textured
-                            else fused_pass(table, *args, **kw))
-                wave_rows += budget
-            wave.append((z_lo, z_hi, outs))
+    for slabs, dispatches in _waves(list(by_slab.items()), stride, max_budget,
+                                    wave_cap, batch_cap if can_batch else 1):
+        # one wave: every pass of its slabs, then ONE counts read-back
+        t1 = time.perf_counter() if timing else 0.0
+        # per slab and pass: (key, w, r, g, b) and its index in the counts
+        handles = [[None] * n for _, _, n in slabs]
+        parts, n_counts, n_batched = [], 0, 0  # count tensors in dispatch order
+        for expand, budget, wide, items in dispatches:
+            kw = dict(expand=expand, budget=budget, ref_weights=ref_weights)
+            if len(items) == 1:
+                desc = items[0][2]
+                out = (_textured_pass(table, pool, *desc, wide_local=wide, **kw)
+                       if textured else fused_pass(table, *desc, wide_local=wide, **kw))
+                rows = [out[:5]]
+            else:
+                out = fused_pass_batch(table, [d for _, _, d in items], **kw)
+                rows = [tuple(x[b] for x in out[:5]) for b in range(len(items))]
+                n_batched += len(items)
+            for b, (slab, pi, _) in enumerate(items):
+                handles[slab][pi] = (rows[b], n_counts + b)
+            parts.append(out[5])
+            n_counts += len(items)
+        n_wave_passes = sum(n for _, _, n in slabs)
+        WAVE_STATS["passes"] += n_wave_passes
+        WAVE_STATS["dispatches"] += len(dispatches)
+        WAVE_STATS["batched"] += n_batched
 
-        counts = torch.cat([o[5] for _, _, outs in wave for o in outs]).tolist()
-        ci = iter(counts)
+        t_disp = time.perf_counter() if timing else 0.0
+        counts = torch.cat(parts).tolist()
+        del parts
+        if timing:
+            t2 = time.perf_counter()
+            print(f"[o2v-timing]   wave: {len(slabs)} slabs {n_wave_passes} passes "
+                  f"({len(dispatches)} dispatches, {n_batched} batched) "
+                  f"{(t2 - t1) * 1000:.0f}ms (dispatch {(t_disp - t1) * 1000:.0f}ms, "
+                  f"drain+pull {(t2 - t_disp) * 1000:.0f}ms) counts={counts}",
+                  flush=True)
+            t1 = t2
         merged = []
-        for z_lo, z_hi, outs in wave:
+        for (z_lo, z_hi, n_passes), slab_handles in zip(slabs, handles):
+            # the slab's passes in pass order, whatever their dispatch order
             live = []
-            for key, w, r, g, b, _ in outs:
-                c = next(ci)
+            for (key, w, r, g, b), ci in slab_handles:
+                c = counts[ci]
                 if _dbg.DEBUG:
                     _dbg.check_count(c, key.shape[0], "pass")
                 if c:
                     live.append((key[:c], (w[:c], r[:c], g[:c], b[:c])))
-            n_passes = len(outs)
-            del outs
+            # a batched launch's buffer lives until its last slab merges
+            slab_handles.clear()
             if live:
                 merged.append((z_lo, z_hi, _merge_slab(
                     live, n_passes, z_lo, is_blend=is_blend, stride=stride,
                     do_down=do_down, merge_runs=merge_runs)))
             del live
 
+        t_mdisp = time.perf_counter() if timing else 0.0
         mcounts = (
             torch.cat([m[2][2] for m in merged]).tolist() if merged else []
         )
+        if timing and merged:
+            t3 = time.perf_counter()
+            print(f"[o2v-timing]   {len(merged)} merges {(t3 - t1) * 1000:.0f}ms "
+                  f"(dispatch {(t_mdisp - t1) * 1000:.0f}ms, "
+                  f"drain+pull {(t3 - t_mdisp) * 1000:.0f}ms)", flush=True)
         for (z_lo, z_hi, (xyz, argb, _)), count in zip(merged, mcounts):
             _log.spam(f"Voxelized slab z[{z_lo},{z_hi}) -> {count}")
             if _dbg.DEBUG:

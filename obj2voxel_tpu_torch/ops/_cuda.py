@@ -39,9 +39,9 @@ COMPACT_TILE = 256
 
 #: Launch counts of the kernels.  Each wrapper adds one where it launches
 #: its kernel and nowhere else.
-LAUNCHES = {"fused_pass": 0, "segment_combine": 0, "pack_exact": 0,
-            "combine_pack": 0, "clip_pairs": 0, "pack_channels": 0,
-            "merge_runs": 0}
+LAUNCHES = {"fused_pass": 0, "fused_pass_batch": 0, "segment_combine": 0,
+            "pack_exact": 0, "combine_pack": 0, "clip_pairs": 0,
+            "pack_channels": 0, "merge_runs": 0}
 
 #: Seconds the last build took (None: loaded from an existing build).
 BUILD_SECONDS = None
@@ -53,6 +53,11 @@ _SIGNATURES = {
     # tile offsets, table, n_table_rows, r0, n_rows, local_base, z_lo, z_hi,
     # stride, log2_expand, budget, wide_local, ref_weights, textured, stream
     "o2v_fused_pass": [_P] * 6 + [_P] * 5 + [_P, _P] + [_P] + [_I] * 12 + [_P],
+    # the same outputs, scratch, tile counts and offsets, each (B, ...);
+    # table, n_table_rows, host (B, 5) (r0, n_rows, local_base, z_lo, z_hi),
+    # B, stride, log2_expand, budget, ref_weights, stream
+    "o2v_fused_pass_batch": [_P] * 6 + [_P] * 5 + [_P, _P] + [_P, _I, _P]
+    + [_I] * 5 + [_P],
     # keys, w, r, g, b, out x5, count_out, scratch (16-byte aligned; the
     # launcher zeroes its flags), n, combine, compact, is_blend, stream
     "o2v_reduce_by_key": [_P] * 5 + [_P] * 5 + [_P, _P] + [_I] * 4 + [_P],

@@ -30,14 +30,27 @@ combine.
 `fused_pass` takes the plain version for CPU tensors and launches the CUDA
 kernel for CUDA tensors; `fused_pass_ref` is the plain version, built from
 the XLA branch of obj2voxel_tpu/engine.py `_bucket_pass` and ops/clip.py.
+
+`fused_pass_batch` is the TPU kernel's batched form (`nbatch` > 1,
+obj2voxel_tpu/engine.py `_bucket_pass_batch`): up to MAX_BATCH untextured,
+non-`wide_local` passes that share expand, budget, stride and ref_weights,
+in one launch; row b of each output is pass b's `fused_pass` output, bit
+for bit.  `fused_pass_batch_ref`, its plain version, stacks
+`fused_pass_ref` over the passes.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _cuda
 from .clip import _sqrt_rn, clip_channels
+
+
+#: Passes one batched launch takes at most (csrc/fused_pass.cu kMaxBatch).
+MAX_BATCH = 8
 
 
 def _divmod_f(lf, sf):
@@ -199,3 +212,68 @@ def fused_pass(table, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
     _cuda.check(err, "fused_pass")
     _cuda.count_launch("fused_pass")
     return (key, *chans, count)
+
+
+def fused_pass_batch_ref(table, passes, *, expand, budget, ref_weights=False):
+    """Plain version of the batched pass: `fused_pass_ref` over each pass,
+    stacked; same contract as `fused_pass_batch`."""
+    outs = [fused_pass_ref(table, *p, expand=expand, budget=budget,
+                           wide_local=False, ref_weights=ref_weights)
+            for p in passes]
+    return (*(torch.stack([o[j] for o in outs]) for j in range(5)),
+            torch.cat([o[5] for o in outs]))
+
+
+def _check_batch(table, passes, expand, budget):
+    if not 1 <= len(passes) <= MAX_BATCH:
+        raise ValueError(f"fused_pass_batch: {len(passes)} passes, not 1 to "
+                         f"{MAX_BATCH}")
+    if any(len(p) != 6 for p in passes):
+        raise ValueError("fused_pass_batch: a pass is (r0, n_rows, local_base, "
+                         "z_lo, z_hi, stride)")
+    if len({p[5] for p in passes}) != 1:
+        raise ValueError("fused_pass_batch: the passes mix strides")
+    for p in passes:
+        _check(table, *p, expand, budget, False)
+
+
+def fused_pass_batch(table, passes, *, expand, budget, ref_weights=False):
+    """Run len(passes) <= MAX_BATCH untextured passes of one shape in one
+    launch.  Each pass is `fused_pass`'s (r0, n_rows, local_base, z_lo, z_hi,
+    stride), all with the same stride, at `expand` and `budget` and never
+    `wide_local`.
+
+    Returns (key (B, budget) int32, w, wr, wg, wb (B, budget) float32,
+    counts (B,) int32): row b is what `fused_pass` gives for pass b."""
+    passes = [tuple(int(x) for x in p) for p in passes]
+    _check_batch(table, passes, expand, budget)
+    if table.device.type == "cpu":
+        return fused_pass_batch_ref(table, passes, expand=expand, budget=budget,
+                                    ref_weights=ref_weights)
+    dev = _cuda.require_cuda("fused_pass_batch", table)
+    nb = len(passes)
+    size = nb * budget
+    n_tiles = -(-budget // _cuda.COMPACT_TILE)
+    # one buffer for the outputs ((B, budget) key and 4 channels, then the
+    # (B,) counts) and one for the slot-ordered scratch and the (B, tiles)
+    # tile counts and offsets
+    out = torch.empty(5 * size + nb, dtype=torch.int32, device=dev)
+    scratch = torch.empty(5 * size + 2 * nb * n_tiles, dtype=torch.int32,
+                          device=dev)
+    key = out[:size].view(nb, budget)
+    chans = [out[(i + 1) * size:(i + 2) * size].view(torch.float32).view(nb, budget)
+             for i in range(4)]
+    counts = out[5 * size:]
+    # (r0, n_rows, local_base, z_lo, z_hi) a pass, by value into the launch
+    scal = (ctypes.c_int * (5 * nb))(*(x for p in passes for x in p[:5]))
+    op, sp = out.data_ptr(), scratch.data_ptr()
+    err = _cuda.lib().o2v_fused_pass_batch(
+        *(op + 4 * i * size for i in range(6)),
+        *(sp + 4 * i * size for i in range(6)), sp + 4 * (5 * size + nb * n_tiles),
+        table.data_ptr(), table.shape[0], scal, nb, passes[0][5],
+        expand.bit_length() - 1, budget, int(bool(ref_weights)),
+        _cuda.stream_ptr(dev),
+    )
+    _cuda.check(err, "fused_pass_batch")
+    _cuda.count_launch("fused_pass_batch")
+    return (key, *chans, counts)

@@ -26,6 +26,7 @@ loop caps its own key heights.
 from __future__ import annotations
 
 import contextlib
+import os
 import queue
 import threading
 
@@ -33,7 +34,9 @@ import numpy as np
 import torch
 
 from ..constants import BLEND_STRATEGY, MAX_STRATEGY, PAIR_TILE
-from ..engine import MAX_PASS_BUDGET, host_table, prepare_soup, stream_slabs
+from ..engine import (
+    MAX_PASS_BUDGET, PLAN_GROUP, host_table, prepare_soup, stream_slabs,
+)
 from ..ops.color import upload_pool
 from ..soup import TexturePool, TriangleSoup
 
@@ -88,7 +91,9 @@ def stream_sharded(
     devices[d % len(devices)].  Yields (xyz (K, 3) int32, argb (K,) uint32)
     numpy batches, one a slab, in completion order.  The voxels are
     `engine.voxelize_soup`'s with the same options.  `tile_size` is the
-    JAX package's deprecated alias for the pass budget."""
+    JAX package's deprecated alias for the pass budget.  O2V_GROUP, read
+    once here, sets every window's planning unit (obj2voxel_tpu/parallel/
+    mesh.py:309); the other knobs are read by each window's `stream_slabs`."""
     devices = [torch.device(d) for d in (parallel_devices() if devices is None
                                          else devices)]
     n_devices = len(devices) if n_devices is None else n_devices
@@ -111,7 +116,8 @@ def stream_sharded(
     kw = dict(aabb_host=aabb, stride=sample_res, z_extent=sample_res,
               is_blend=bool(strategy == BLEND_STRATEGY),
               do_down=bool(supersampling > 1), pair_tile=pair_tile,
-              max_pass_budget=max_pass_budget)
+              max_pass_budget=max_pass_budget,
+              group=int(os.environ.get("O2V_GROUP", PLAN_GROUP)))
 
     def windows_on(device, windows):
         """One device's windows in turn, on its own copy of the table."""

@@ -8,13 +8,18 @@ ten calls of K1, K4, K5 and K6 alone at chip_smoke.py's timing shapes
 combine`: the fused `combine_pack`, K2 and K3 alone, and the engine's call)
 on phase 3's stream and on the sphere's real merge input; and of one warm
 `voxelize_batch` run of phase 17's 1000 meshes (`--paths batch`: the trace,
-then the host functions by cumulative time under cProfile).
+then the host functions by cumulative time under cProfile).  `--paths
+schedule` prints the pass schedule of the sphere, the supersampled sphere
+and phase 17's batch under O2V_BATCH=1 and =8 (passes, waves, dispatches,
+batched launches); alone it needs no card (`--paths untextured` prints the
+sphere's too).
 
     python3 scripts/profile_port.py [--top 15] [--paths untextured,k1,k4]
+    python3 scripts/profile_port.py --paths schedule
 
 Prints, per path, the wall time of the profiled run, the device's busy time
 (the union of its kernel intervals) and idle share, and the kernels with the
-most device time.  Needs one CUDA device.
+most device time.  Needs one CUDA device except for the schedule.
 """
 
 from __future__ import annotations
@@ -68,23 +73,74 @@ def by_kernel(prof, top):
         print(f"  {a.device_time_total / 1e3:9.3f} ms  {a.count:5d}x  {a.key[:90]}")
 
 
-def pass_schedule(table, aabb, stride):
-    """The passes the engine runs on the sphere table at `stride`: how many
-    at each budget, and the slots in their rows' AABBs."""
+def pass_schedule(table, aabb, stride, z_extent=None):
+    """The passes `stream_slabs` runs on `table` (on any device) at
+    `stride`: how many at each budget and their slots; then, under
+    O2V_BATCH=1 and =8 (`engine._waves`, the engine's own schedule), its
+    waves, dispatches, passes batched and batched launches by size."""
     from collections import Counter
 
-    from obj2voxel_tpu_torch.engine import MAX_PASS_BUDGET, _schedule_passes
+    from obj2voxel_tpu_torch.engine import (
+        MAX_PASS_BUDGET, PLAN_GROUP, WAVE_CAP_ROWS, _schedule_passes, _waves,
+    )
+    from obj2voxel_tpu_torch.ops.plan import plan_mesh
     from obj2voxel_tpu_torch.ops.plan_device import plan_mesh_device
 
-    _, segs = plan_mesh_device(table, aabb[0].shape[0], stride, stride,
-                               4 * MAX_PASS_BUDGET, group=8)
+    z_extent = z_extent or stride
+    order, segs = plan_mesh_device(table, aabb[0].shape[0], stride, z_extent,
+                                   4 * MAX_PASS_BUDGET, group=PLAN_GROUP)
+    if order is None:  # past the device planner's slabs, as stream_slabs does
+        _, segs = plan_mesh(aabb[0], aabb[1], stride, z_extent, 4 * MAX_PASS_BUDGET)
     slabs = {}
     for seg in segs:
         slabs.setdefault((seg.z_lo, seg.z_hi), []).append(seg)
     passes = [p for ss in slabs.values() for p in _schedule_passes(ss, MAX_PASS_BUDGET)]
     budgets = Counter(p[1] for p in passes)
-    return (f"{len(passes)} passes, {sum(b * n for b, n in budgets.items())} "
-            f"slots; by budget {dict(sorted(budgets.items()))}")
+    text = (f"{len(slabs)} slabs, {len(passes)} passes, "
+            f"{sum(b * n for b, n in budgets.items())} slots; by budget "
+            f"{dict(sorted(budgets.items()))}")
+    for cap in (1, 8):
+        waves = list(_waves(list(slabs.items()), stride, MAX_PASS_BUDGET,
+                            WAVE_CAP_ROWS, cap))
+        launches = [len(items) for _, ds in waves for *_, items in ds]
+        sizes = Counter(n for n in launches if n > 1)
+        text += (f"; O2V_BATCH={cap}: {len(waves)} waves, {len(launches)} "
+                 f"dispatches ({launches.count(1)} single), "
+                 f"{sum(n for n in launches if n > 1)} batched, batched launches "
+                 f"by size {dict(sorted(sizes.items()))}")
+    return text
+
+
+def batch_table():
+    """Phase 17's stacked table and host AABBs, as `voxelize_batch` builds
+    them (on the CPU), and its z extent."""
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch.engine import host_table, prepare_soup
+
+    meshes = cs.batch_meshes()
+    parts = []
+    for i, tris in enumerate(meshes):
+        verts, *rest = prepare_soup(pt.TriangleSoup.from_vertices(tris), cs.BATCH_RES)
+        verts = verts.copy()
+        verts[:, :, 2] += np.float32(i * cs.BATCH_RES)
+        parts.append((verts, *rest))
+    z_extent = len(meshes) * cs.BATCH_RES
+    table, aabb = host_table(*(np.concatenate(c) for c in zip(*parts)),
+                             stride=cs.BATCH_RES, z_extent=z_extent)
+    return torch.from_numpy(table), aabb, z_extent
+
+
+def schedules():
+    """The pass schedule of the three paths that batch, computed on the CPU:
+    the sphere at 1024^3, its table at 2048^3 (supersampled) and phase
+    17's batch."""
+    for name, res in (("untextured", cs.SPHERE_RES), ("supersampled", 2 * cs.SPHERE_RES)):
+        table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, res)
+        print(f"[schedule {name}] {pass_schedule(torch.from_numpy(table_np), aabb, res)}",
+              flush=True)
+    table, aabb, z_extent = batch_table()
+    print(f"[schedule batch] {pass_schedule(table, aabb, cs.BATCH_RES, z_extent)}",
+          flush=True)
 
 
 def profile(name, table, pool, aabb, is_blend, top, **kw):
@@ -192,7 +248,7 @@ def profile_batch(top):
 
 
 PATHS = ("untextured", "merge-runs", "supersampled", "textured", "k1", "k4",
-         "k5", "k6", "combine", "batch")
+         "k5", "k6", "combine", "batch", "schedule")
 
 
 def main():
@@ -204,6 +260,9 @@ def main():
     top, paths = args.top, args.paths.split(",")
     if not set(paths) <= set(PATHS):
         raise SystemExit(f"--paths: choose from {','.join(PATHS)}")
+    if paths == ["schedule"]:
+        schedules()  # host work only: runs without a card
+        return
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile runs only on a GPU")
     import obj2voxel_tpu_torch as pt
@@ -256,6 +315,8 @@ def main():
                 aabb, False, top, stride=2 * cs.SPHERE_RES, do_down=True)
     if "batch" in paths:
         profile_batch(top)
+    if "schedule" in paths:
+        schedules()
     if "textured" in paths:
         table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, cs.SPHERE_RES, textured=True)
         pool, _ = cs.palette_pool()
