@@ -27,10 +27,11 @@ weights) and 11 textured, card against CPU; 6 the unit-cube closed forms;
 batch (BASELINE config 5), 18 multi-device windows against one device, 19
 the C shim's capi_test on the card (9 also runs K4 through the public
 `clip_triangles_to_voxels_pallas`); 20 K1's batched form against its plain
-version and against single K1 launches on the sphere's batched passes, then
-the sphere, the supersampled sphere and the batch under O2V_BATCH=8 against
-O2V_BATCH=1, timed in turns; 8 kernel timings beside each kernel's
-bound.  Prints one line per phase, a
+version and against single K1 launches on the sphere's batched passes (the
+counts and each pass's live rows: batches of 2 to 8, one with an empty pass,
+50 launches alike; no ptxas spill, at most 64 registers), then the sphere, the supersampled sphere
+and the batch under O2V_BATCH=8 against O2V_BATCH=1, timed in turns; 8
+kernel timings beside each kernel's bound.  Prints one line per phase, a
 JSON line with the kernels' launches, errors, times and bounds, and as its
 last line {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line is printed.
@@ -1503,50 +1504,110 @@ def sphere_batches(table, aabb):
 
 
 def compare_batch(got, want, what):
-    """Batched K1 outputs against (B, budget) stacks of the same: every
-    count, key and channel bit for bit; returns the live pairs."""
+    """Batched K1 outputs against (B, budget) stacks of the same: the counts,
+    then each row's first count entries, key and channels, bit for bit (the
+    entries past a count are undefined); returns the live pairs."""
     if not torch.equal(got[5], want[5]):
         fail(f"{what}: counts {got[5].tolist()} != {want[5].tolist()}")
+    counts = want[5].tolist()
     for g, w, name in zip(got, want, ("keys", "w", "wr", "wg", "wb")):
-        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-            fail(f"{what}: {name} differ")
-    return int(want[5].sum().item())
+        for b, n in enumerate(counts):
+            if not torch.equal(g[b, :n].view(torch.int32), w[b, :n].view(torch.int32)):
+                fail(f"{what}: {name} of pass {b} differ")
+    return sum(counts)
+
+
+def batch_vs_plain_and_single(table, passes, what, **kw):
+    """One batched launch against its plain version and against one K1
+    launch a pass; returns its outputs and live pairs."""
+    from obj2voxel_tpu_torch.ops.pass_fused import (
+        fused_pass, fused_pass_batch, fused_pass_batch_ref,
+    )
+
+    got = fused_pass_batch(table, passes, **kw)
+    n = compare_batch(got, fused_pass_batch_ref(table, passes, **kw), f"{what} vs plain")
+    singles = [fused_pass(table, *p, **kw) for p in passes]
+    compare_batch(got, [torch.stack([o[j] for o in singles]) for j in range(5)]
+                  + [torch.cat([o[5] for o in singles])], f"{what} vs single")
+    return got, n
+
+
+def ptxas_usage(kernel):
+    """Registers and spill stores of `kernel` in phase 1's ptxas report, and
+    its lines."""
+    import re
+
+    from obj2voxel_tpu_torch.ops import _cuda
+
+    lines = _cuda.resource_log_path().read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            text = " ".join(x.strip() for x in lines[i + 1:i + 3])
+            spills = re.search(r"(\d+) bytes spill stores", text)
+            regs = re.search(r"Used (\d+) registers", text)
+            if spills and regs:
+                return int(regs.group(1)), int(spills.group(1)), text
+    fail(f"ptxas report: no registers or spills for {kernel}")
 
 
 def phase_k1_batch(stats):
-    """K1's batched form on the sphere's batched launches of 8, 4 and 2
-    passes, with and without ref_weights: bit for bit against its plain
-    version and against one K1 launch a pass; then its time for 8 passes
-    beside 8 single launches in turns, its plain version and its bound."""
+    """K1's batched form bit for bit against its plain version and against
+    one K1 launch a pass, on the counts and each pass's live rows: the
+    sphere's batched launches of 8, 4 and 2 passes, with and without
+    ref_weights; one batch of each size 2 to 8; a batch holding a pass with
+    no live pair; 50 launches of one batch of 8, all equal.  Then its time
+    for 8 passes and for 1 beside single launches in turns, its plain
+    version and its bound; in its ptxas report no spill and at most 64
+    registers."""
     from obj2voxel_tpu_torch.ops.clip_pallas import pass_pairs
     from obj2voxel_tpu_torch.ops.pass_fused import (
         fused_pass, fused_pass_batch, fused_pass_batch_ref,
     )
 
     t0 = time.perf_counter()
+    # no spill, and at most 64 registers: 4 blocks of 256 threads an SM
+    regs, spills, line = ptxas_usage("fused_pass_batch_kernel")
+    if spills or regs > 64:
+        fail(f"fused_pass_batch_kernel: {line}")
     table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES)
     ordered, batches = sphere_batches(torch.from_numpy(table_np).cuda(), aabb)
-    details = []
+    details = [f"ptxas {line}"]
     for expand, budget, passes, n_slabs in batches:
         for ref in (False, True):
-            kw = dict(expand=expand, budget=budget, ref_weights=ref)
-            got = fused_pass_batch(ordered, passes, **kw)
-            what = f"K1 batch of {len(passes)} at expand {expand} ref_weights={ref}"
-            n = compare_batch(got, fused_pass_batch_ref(ordered, passes, **kw),
-                              f"{what} vs plain")
-            singles = [fused_pass(ordered, *p, **kw) for p in passes]
-            compare_batch(got, [torch.stack([o[j] for o in singles]) for j in range(5)]
-                          + [torch.cat([o[5] for o in singles])], f"{what} vs single")
+            _, n = batch_vs_plain_and_single(
+                ordered, passes, f"K1 batch of {len(passes)} at expand {expand} "
+                f"ref_weights={ref}", expand=expand, budget=budget, ref_weights=ref)
             details.append(f"B{len(passes)} e{expand} {n_slabs} slabs"
                            f"{' ref_weights' if ref else ''}: {n} pairs")
     expand, budget, passes, _ = batches[0]
     kw = dict(expand=expand, budget=budget)
+    sizes = []
+    for nb in range(2, 9):
+        _, n = batch_vs_plain_and_single(ordered, passes[-nb:], f"K1 batch of {nb}", **kw)
+        sizes.append(f"{nb}:{n}")
+    details.append("sizes " + " ".join(sizes))
+    # pass 3's rows in a z window that none of them reaches: 0 live pairs
+    r0, n_rows, local_base, z_lo, z_hi, stride = passes[3]
+    far = (0, 16) if z_lo >= SPHERE_RES // 2 else (SPHERE_RES - 16, SPHERE_RES)
+    empty = [*passes[:3], (r0, n_rows, local_base, *far, stride), *passes[4:]]
+    got, n = batch_vs_plain_and_single(ordered, empty, "K1 batch with an empty pass", **kw)
+    if got[5][3].item() != 0 or n == 0:
+        fail(f"K1 batch with an empty pass: counts {got[5].tolist()}")
+    details.append(f"empty pass 3 (z {far}): counts {got[5].tolist()}")
+    first = fused_pass_batch(ordered, passes, **kw)
+    for i in range(50):
+        compare_batch(fused_pass_batch(ordered, passes, **kw), first,
+                      f"K1 batch of 8, launch {i + 1} of 50")
+    details.append("50 launches of 8 equal")
     batch_ms, single_ms, turns = in_turns(
         lambda: fused_pass_batch(ordered, passes, **kw),
         lambda: [fused_pass(ordered, *p, **kw) for p in passes])
-    counts = fused_pass_batch(ordered, passes, **kw)[5].tolist()
+    one_ms, one_single_ms, one_turns = in_turns(
+        lambda: fused_pass_batch(ordered, passes[:1], **kw),
+        lambda: fused_pass(ordered, *passes[0], **kw))
+    counts = first[5].tolist()
     stats["fused_pass_batch"].update(
-        ms=batch_ms,
+        ms=batch_ms, single_ms=single_ms, b1_ms=one_ms, b1_single_ms=one_single_ms,
         plain_ms=cuda_ms(lambda: fused_pass_batch_ref(ordered, passes, **kw), reps=1),
         library_ms=None, max_abs_err=0.0)
     # as phase 2 counts one pass: the 12 columns read of each row, 20 B per
@@ -1562,7 +1623,9 @@ def phase_k1_batch(stats):
     bound(stats, "fused_pass_batch", n_bytes, n_ops)
     phase("20 K1 fused_pass_batch vs plain and single K1 launches", t0,
           "; ".join(details) + f"; 8 passes in {batch_ms:.4f} ms, 8 single "
-          f"launches {single_ms:.4f} ms in turns {[round(x, 4) for x in turns]}")
+          f"launches {single_ms:.4f} ms in turns {[round(x, 4) for x in turns]}; "
+          f"1 pass in {one_ms:.4f} ms, 1 single launch {one_single_ms:.4f} ms in "
+          f"turns {[round(x, 4) for x in one_turns]}")
 
 
 def slab_outputs(table, aabb, is_blend, **kw):
@@ -1757,6 +1820,10 @@ def main():
     # K1's textured variant: the same kernel source and launch count
     line[0]["variants"] = {"textured": {k: stats["fused_pass_textured"][k]
                                         for k in keys}}
+    # K1's batched form: 8 single K1 launches, and one pass alone against one
+    # K1 launch, each timed in turns beside it
+    line[1]["in_turns"] = {k: stats["fused_pass_batch"][k]
+                           for k in ("single_ms", "b1_ms", "b1_single_ms")}
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

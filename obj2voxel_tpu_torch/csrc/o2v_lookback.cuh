@@ -13,6 +13,9 @@
 //   aggregate as soon as it knows it, then its inclusive prefix.
 // - One warp looks back over its predecessors' words, 32 at a time: it sums
 //   aggregates until it meets an inclusive prefix.
+// - A block may publish its aggregate (`lookback_publish`) well before it
+//   looks back (`lookback_prefix`): K1's batched form clips its next tile in
+//   between, so that its predecessors have published by the time it looks.
 //
 // The status words and the ticket live in scratch that the caller zeroes
 // before each launch, so a launch never reads an earlier launch's flags.
@@ -46,17 +49,21 @@ __device__ __forceinline__ int lookback_ticket(int* ticket, int* s_ticket) {
   return *s_ticket;
 }
 
-// Exclusive prefix of block `tile` of the chain, whose own total is
-// `aggregate`; publishes the block's aggregate and then its inclusive
-// prefix.  Called by all 32 lanes of one warp; every lane returns it.
-__device__ int lookback_exclusive(unsigned long long* status, int tile,
-                                  int aggregate) {
+// Publish block `tile`'s own total `aggregate`; block 0's is its inclusive
+// prefix.  One thread calls it.
+__device__ __forceinline__ void lookback_publish(unsigned long long* status,
+                                                 int tile, int aggregate) {
+  lookback_store(status, tile, tile == 0 ? LB_PREFIX : LB_AGGREGATE,
+                 aggregate);
+}
+
+// Exclusive prefix of block `tile` of the chain, which has already published
+// its `aggregate`; publishes its inclusive prefix.  Called by all 32 lanes
+// of one warp; every lane returns it.
+__device__ __forceinline__ int lookback_prefix(unsigned long long* status,
+                                               int tile, int aggregate) {
+  if (tile == 0) return 0;
   const int lane = threadIdx.x & 31;
-  if (tile == 0) {
-    if (lane == 0) lookback_store(status, 0, LB_PREFIX, aggregate);
-    return 0;
-  }
-  if (lane == 0) lookback_store(status, tile, LB_AGGREGATE, aggregate);
   int exclusive = 0;
   for (int end = tile;; end -= 32) {
     // lane l reads block end - 1 - l; before block 0 the prefix is 0
@@ -78,6 +85,15 @@ __device__ int lookback_exclusive(unsigned long long* status, int tile,
   }
   if (lane == 0) lookback_store(status, tile, LB_PREFIX, exclusive + aggregate);
   return exclusive;
+}
+
+// Exclusive prefix of block `tile` of the chain, whose own total is
+// `aggregate`; publishes the block's aggregate and then its inclusive
+// prefix.  Called by all 32 lanes of one warp; every lane returns it.
+__device__ int lookback_exclusive(unsigned long long* status, int tile,
+                                  int aggregate) {
+  if ((threadIdx.x & 31) == 0) lookback_publish(status, tile, aggregate);
+  return lookback_prefix(status, tile, aggregate);
 }
 
 }  // namespace

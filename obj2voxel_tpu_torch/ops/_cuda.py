@@ -53,11 +53,11 @@ _SIGNATURES = {
     # tile offsets, table, n_table_rows, r0, n_rows, local_base, z_lo, z_hi,
     # stride, log2_expand, budget, wide_local, ref_weights, textured, stream
     "o2v_fused_pass": [_P] * 6 + [_P] * 5 + [_P, _P] + [_P] + [_I] * 12 + [_P],
-    # the same outputs, scratch, tile counts and offsets, each (B, ...);
-    # table, n_table_rows, host (B, 5) (r0, n_rows, local_base, z_lo, z_hi),
-    # B, stride, log2_expand, budget, ref_weights, stream
-    "o2v_fused_pass_batch": [_P] * 6 + [_P] * 5 + [_P, _P] + [_P, _I, _P]
-    + [_I] * 5 + [_P],
+    # the same outputs, each (B, ...); look-back status words + ticket
+    # (8-byte aligned; the launcher zeroes them), table, n_table_rows, host
+    # (B, 5) (r0, n_rows, local_base, z_lo, z_hi), B, stride, log2_expand,
+    # budget, ref_weights, stream
+    "o2v_fused_pass_batch": [_P] * 6 + [_P] + [_P, _I, _P] + [_I] * 5 + [_P],
     # keys, w, r, g, b, out x5, count_out, scratch (16-byte aligned; the
     # launcher zeroes its flags), n, combine, compact, is_blend, stream
     "o2v_reduce_by_key": [_P] * 5 + [_P] * 5 + [_P, _P] + [_I] * 4 + [_P],

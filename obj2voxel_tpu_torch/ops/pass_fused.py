@@ -34,9 +34,11 @@ the XLA branch of obj2voxel_tpu/engine.py `_bucket_pass` and ops/clip.py.
 `fused_pass_batch` is the TPU kernel's batched form (`nbatch` > 1,
 obj2voxel_tpu/engine.py `_bucket_pass_batch`): up to MAX_BATCH untextured,
 non-`wide_local` passes that share expand, budget, stride and ref_weights,
-in one launch; row b of each output is pass b's `fused_pass` output, bit
-for bit.  `fused_pass_batch_ref`, its plain version, stacks
-`fused_pass_ref` over the passes.
+in one launch that clips and compacts; row b's first counts[b] entries are
+pass b's `fused_pass` output, bit for bit, and the entries past the count
+are undefined (the TPU kernel's pack mode leaves them so too).
+`fused_pass_batch_ref`, its plain version, stacks `fused_pass_ref` over the
+passes (and so fills them with (INVALID, 0)).
 """
 
 from __future__ import annotations
@@ -244,7 +246,8 @@ def fused_pass_batch(table, passes, *, expand, budget, ref_weights=False):
     `wide_local`.
 
     Returns (key (B, budget) int32, w, wr, wg, wb (B, budget) float32,
-    counts (B,) int32): row b is what `fused_pass` gives for pass b."""
+    counts (B,) int32): row b's first counts[b] entries are what `fused_pass`
+    gives for pass b; the entries past the count are undefined."""
     passes = [tuple(int(x) for x in p) for p in passes]
     _check_batch(table, passes, expand, budget)
     if table.device.type == "cpu":
@@ -254,22 +257,20 @@ def fused_pass_batch(table, passes, *, expand, budget, ref_weights=False):
     nb = len(passes)
     size = nb * budget
     n_tiles = -(-budget // _cuda.COMPACT_TILE)
-    # one buffer for the outputs ((B, budget) key and 4 channels, then the
-    # (B,) counts) and one for the slot-ordered scratch and the (B, tiles)
-    # tile counts and offsets
-    out = torch.empty(5 * size + nb, dtype=torch.int32, device=dev)
-    scratch = torch.empty(5 * size + 2 * nb * n_tiles, dtype=torch.int32,
-                          device=dev)
+    # one buffer: the outputs ((B, budget) key and 4 channels, then the (B,)
+    # counts), then, 8-byte aligned, the (B, tiles) look-back status words
+    # and the ticket, which the launcher zeroes
+    head = 5 * size + nb + nb % 2
+    out = torch.empty(head + 2 * (nb * n_tiles + 1), dtype=torch.int32, device=dev)
     key = out[:size].view(nb, budget)
     chans = [out[(i + 1) * size:(i + 2) * size].view(torch.float32).view(nb, budget)
              for i in range(4)]
-    counts = out[5 * size:]
+    counts = out[5 * size:5 * size + nb]
     # (r0, n_rows, local_base, z_lo, z_hi) a pass, by value into the launch
     scal = (ctypes.c_int * (5 * nb))(*(x for p in passes for x in p[:5]))
-    op, sp = out.data_ptr(), scratch.data_ptr()
+    op = out.data_ptr()
     err = _cuda.lib().o2v_fused_pass_batch(
-        *(op + 4 * i * size for i in range(6)),
-        *(sp + 4 * i * size for i in range(6)), sp + 4 * (5 * size + nb * n_tiles),
+        *(op + 4 * i * size for i in range(6)), op + 4 * head,
         table.data_ptr(), table.shape[0], scal, nb, passes[0][5],
         expand.bit_length() - 1, budget, int(bool(ref_weights)),
         _cuda.stream_ptr(dev),

@@ -3,7 +3,14 @@ the plain version `fused_pass_batch_ref`.
 
 - The batched plain version equals one `fused_pass_ref` a pass bit for bit,
   at expand 8 and 512, with z windows and short `n_rows`
-  (tests/test_pass_fused.py's batched case, on the port's side).
+  (tests/test_pass_fused.py's batched case, on the port's side); and, on
+  each pass's counts and live rows only (the wrapper's contract: the kernel
+  leaves the rows past a count undefined), for every batch size 2 to 8 with
+  a pass that has no live pair.
+- `stream_slabs` reads nothing of a batched pass past its count: with every
+  row past each count poisoned (random keys, NaN channels),
+  tests/test_pipeline.py:160's soup under O2V_BATCH=8 gives the bytes of
+  the clean run, BLEND, and MAX supersampled (`do_down`).
 - It agrees with the JAX package's `_bucket_pass_batch(use_pallas=False)`,
   whose Pallas kernel XLA compiles for the CPU in interpret mode (one
   compile, some 40 s): keys and live counts exactly, channels to rtol 5e-5
@@ -17,8 +24,9 @@ the plain version `fused_pass_batch_ref`.
   grid.
 - The wrapper takes the plain version for CPU tensors and counts no launch;
   on its CUDA branch (meta tensors, a stand-in library) it makes one call
-  with the per-pass scalars on the host, counts one launch, and raises on a
-  non-zero error code instead of falling back.
+  with the per-pass scalars on the host, in one buffer of the outputs and
+  the look-back's status words and ticket, counts one launch, and raises on
+  a non-zero error code instead of falling back.
 - `_check` rejects 0 or more than 8 passes, mixed strides and every pass
   that `fused_pass` rejects.
 """
@@ -28,8 +36,11 @@ import numpy as np
 import pytest
 import torch
 
+import obj2voxel_tpu_torch as pt
 from obj2voxel_tpu.engine import _bucket_pass_batch
-from obj2voxel_tpu_torch.ops import _cuda
+from obj2voxel_tpu_torch import engine
+from obj2voxel_tpu_torch.constants import BLEND_STRATEGY, MAX_STRATEGY
+from obj2voxel_tpu_torch.ops import _cuda, pass_fused
 from obj2voxel_tpu_torch.ops.pass_fused import (
     MAX_BATCH, fused_pass, fused_pass_batch, fused_pass_batch_ref,
     fused_pass_ref,
@@ -87,6 +98,76 @@ def test_plain_batch_equals_single_passes(expand, span, ref_weights):
             assert torch.equal(_bits(g[b]), _bits(w))
         covered += int(want[5])
     assert covered > 0
+
+
+@pytest.mark.parametrize("nb", range(2, MAX_BATCH + 1))
+def test_plain_batch_live_rows_equal_single_passes(nb):
+    expand, budget, res = 8, 4096, 64
+    rows = budget // expand
+    table = torch.from_numpy(_table(nb * rows + 32, res, 1.2, 200 + nb))
+    h = res // nb
+    passes = [(b * rows, rows - b, 0, b * h, (b + 1) * h, res) for b in range(nb)]
+    # the middle pass in an empty z window: no live pair
+    e = nb // 2
+    passes[e] = (*passes[e][:3], 0, 0, res)
+    got = fused_pass_batch(table, passes, expand=expand, budget=budget)
+    counts = got[5].tolist()
+    assert counts[e] == 0 and sum(counts) > 0
+    for b, p in enumerate(passes):
+        want = fused_pass(table, *p, expand=expand, budget=budget)
+        n = int(want[5])
+        assert counts[b] == n
+        for g, w in zip(got[:5], want[:5]):
+            assert torch.equal(_bits(g[b, :n]), _bits(w[:n]))
+
+
+def _pipeline_soup():
+    """tests/test_pipeline.py:160's soup: 6000 translated copies of one
+    triangle at integer offsets, one expand bucket, several passes a slab at
+    a 2^14 budget."""
+    rng = np.random.RandomState(7)
+    base = np.array([[0.2, 0.2, 0.3], [1.4, 0.3, 0.4], [0.3, 1.4, 1.3]], np.float32)
+    offs = rng.randint(0, 60, size=(6000, 1, 3)).astype(np.float32)
+    return pt.TriangleSoup.from_vertices((base[None] + offs).reshape(-1, 3, 3))
+
+
+def _stream_bytes(soup, **kw):
+    out = list(pt.voxelize_soup(
+        soup, resolution=64, pair_tile=1 << 14, device="cpu",
+        bounds=(np.zeros(3, np.float32), np.full(3, 62.0, np.float32)), **kw))
+    assert out
+    return b"".join([x.tobytes() for x, _ in out] + [a.tobytes() for _, a in out])
+
+
+@pytest.mark.parametrize("strategy,supersampling", [(BLEND_STRATEGY, 1),
+                                                    (MAX_STRATEGY, 2)],
+                         ids=["blend", "max_do_down"])
+def test_stream_reads_nothing_past_a_count(monkeypatch, strategy, supersampling):
+    for name in ("O2V_WAVE_CAP", "O2V_HOST_PLAN", "O2V_GROUP"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("O2V_BATCH", "8")
+    monkeypatch.setenv("O2V_BATCH_FORCE", "1")
+    soup = _pipeline_soup()
+    kw = dict(strategy=strategy, supersampling=supersampling)
+    want = _stream_bytes(soup, **kw)
+    clean = pass_fused.fused_pass_batch_ref
+    poisoned = []
+
+    def poison(table, passes, *, expand, budget, ref_weights=False):
+        out = clean(table, passes, expand=expand, budget=budget,
+                    ref_weights=ref_weights)
+        gen = torch.Generator().manual_seed(len(poisoned))
+        for b, n in enumerate(out[5].tolist()):
+            out[0][b, n:] = torch.randint(0, 1 << 18, (budget - n,), generator=gen,
+                                          dtype=torch.int32)
+            for c in out[1:5]:
+                c[b, n:] = float("nan")
+            poisoned.append(budget - n)
+        return out
+
+    monkeypatch.setattr(pass_fused, "fused_pass_batch_ref", poison)
+    assert _stream_bytes(soup, **kw) == want
+    assert engine.WAVE_STATS["batched"] >= 2 and sum(poisoned) > 0
 
 
 def test_plain_batch_matches_jax_bucket_pass_batch():
@@ -169,13 +250,15 @@ def test_wrapper_cuda_branch_layout(monkeypatch):
     assert key.shape == w.shape == (nb, budget) and counts.shape == (nb,)
     assert list(args[:6]) == [4 * i * size for i in range(6)]
     assert [4 * x.storage_offset() for x in (key, w, r, g, b, counts)] == list(args[:6])
-    # scratch: 5 (B, budget) rows, then (B, tiles) tile counts and offsets
+    # no slot-ordered scratch: after the outputs, 8-byte aligned, one status
+    # word a (pass, tile) and the ticket, in the same buffer
     tiles = budget // _cuda.COMPACT_TILE
-    assert list(args[6:11]) == [4 * i * size for i in range(5)]
-    assert args[11] == 4 * 5 * size and args[12] == 4 * (5 * size + nb * tiles)
-    scal = args[15]
+    head = 5 * size + nb + 1
+    assert args[6] == 4 * head and args[6] % 8 == 0
+    assert key.untyped_storage().nbytes() == 4 * head + 8 * (nb * tiles + 1)
+    scal = args[9]
     assert list(scal) == [x for p in passes for x in p[:5]]
-    assert args[16:22] == (nb, 8, 3, budget, 1, 0)
+    assert args[10:16] == (nb, 8, 3, budget, 1, 0)
 
 
 def test_wrapper_raises_on_a_failed_launch(monkeypatch):
