@@ -10,9 +10,12 @@ down to 1024^3 under MAX (the CLI's `-r 1024 -u`); 1000 small meshes
 through `voxelize_batch`; the sphere as a soup through `stream_sharded` in
 z windows repeated on the one card; the C shim; the sphere, the
 supersampled sphere and the 1000 meshes again with K1's batched form
-(O2V_BATCH=8) -- and checks the outputs against known voxel counts and
-digests, the default route, one device, the unbatched run, the CPU run of
-the same code, and the closed forms.
+(O2V_BATCH=8); the bench entry (bench.py's counterpart) on the 2M and 10M
+spheres; BASELINE configs 4 and 6 (a 10M-triangle STL into VL32 at 2048^3,
+a helix at 8192^3 planned on the host) through `Instance` -- and checks
+the outputs against known voxel counts and digests, the default route, one
+device, the unbatched run, the CPU run of the same code, and the closed
+forms.
 
     python3 chip_smoke.py             # all phases; needs one CUDA device
     python3 chip_smoke.py --phases 1,13
@@ -30,8 +33,13 @@ the C shim's capi_test on the card (9 also runs K4 through the public
 version and against single K1 launches on the sphere's batched passes (the
 counts and each pass's live rows: batches of 2 to 8, one with an empty pass,
 50 launches alike; no ptxas spill, at most 64 registers), then the sphere, the supersampled sphere
-and the batch under O2V_BATCH=8 against O2V_BATCH=1, timed in turns; 8
-kernel timings beside each kernel's bound.  Prints one line per phase, a
+and the batch under O2V_BATCH=8 against O2V_BATCH=1, timed in turns; 21
+the bench entry's device, pull and host modes on the 2M sphere and device
+and pull on the 10M sphere at 1024^3 (each mode's bench.py JSON line after
+`[bench]`); 22 config 4 against the CPU run's bytes, then from the host
+planner and from 3 z windows; 23 config 6 against the CPU run's bytes, past
+32 slabs, its peak RSS under config 4's (each config's scale_proof.py JSON
+line after `[scale]`); 8 kernel timings beside each kernel's bound.  Prints one line per phase, a
 JSON line with the kernels' launches, errors, times and bounds, and as its
 last line {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line is printed.
@@ -45,8 +53,10 @@ clip's operations are counted on this run's pairs (`clip_flops`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -82,6 +92,26 @@ BATCH_VOXELS = 18_162_858
 BATCH_SHA256 = "b94329ff2410c1f3078bc20ab567f91035c5ac2002c89296c5826b98dfe16e92"
 # Phase 19: the unit cube at r = 32 through the C shim (capi_test.c).
 CUBE_32_VOXELS = 5768
+# Phases 21-23: the port's CPU runs of the same calls
+# (scripts/scale_count_torch.py).  Phase 21: the bench entry's host mode
+# (the 2M-triangle sphere as a soup through voxelize_soup, BLEND; the host
+# transform and subdivision build another table than device mode's), and
+# device mode on bench.py's 10M-triangle table at 1024^3: its voxels and the
+# sha256 of its sorted voxel set (`bench.occupancy_sha256`).
+HOST_SPHERE_VOXELS = 4_936_254
+SPHERE_10M_TRIS = 10_000_000
+SPHERE_10M_VOXELS = 4_936_280
+SPHERE_10M_SHA256 = "94e2e6b3bd7271be1ad644ee5d1d548c848e25d6ffde83e6efe547736583003c"
+# Phase 22: BASELINE config 4, the 10M-triangle sphere as a binary STL through
+# `Instance` into VL32 at 2048^3 (MAX): voxels and the file's sha256; an STL
+# carries no color, so every voxel is one ARGB.
+CONFIG4_VOXELS = 19_755_332
+CONFIG4_SHA256 = "e21d7a0278cc1daeca9e50e10d39272dad2c5814b8f2ba8e6025a22606603876"
+STL_ARGB = 0xFFFFFFFF
+# Phase 23: BASELINE config 6, the 100k-triangle helix as a binary STL through
+# `Instance` into VL32 at 8192^3: 274 slabs, planned on the host.
+CONFIG6_VOXELS = 9_867_131
+CONFIG6_SHA256 = "9b531ad5069398c3e1712e961b85dd8157bbfee26c49e92791ce6f6d8986b621"
 BUDGET = 1 << 21
 STREAM = 1 << 22
 INV = (1 << 31) - 1
@@ -114,7 +144,9 @@ KERNELS = {
 # the kernels each main path must launch (sharded: BLEND in 2 windows, then
 # MAX in 3 under O2V_MERGE_RUNS=1; clip_helper: the public per-pair clip;
 # batched: the sphere, the supersampled sphere and the batch under
-# O2V_BATCH=8, whose lone remainders still run single K1 passes)
+# O2V_BATCH=8, whose lone remainders still run single K1 passes; bench: the
+# bench entry's modes; scale_2048 and scale_8192: configs 4 and 6 through
+# Instance)
 PATH_KERNELS = {
     "untextured": ("fused_pass", "combine_pack"),
     "textured": ("fused_pass", "combine_pack"),
@@ -124,16 +156,22 @@ PATH_KERNELS = {
     "sharded": ("fused_pass", "merge_runs", "combine_pack"),
     "clip_helper": ("clip_pairs",),
     "batched": ("fused_pass", "fused_pass_batch", "combine_pack"),
+    "bench": ("fused_pass", "combine_pack"),
+    "scale_2048": ("fused_pass", "combine_pack"),
+    "scale_8192": ("fused_pass", "combine_pack"),
 }
 # the kernels a main path must not launch: every merge runs K2 and K3 as
 # combine_pack, and every pass clips in K1
 PATH_ABSENT = {path: ("segment_combine", "pack_exact") for path in PATH_KERNELS}
-for path in ("textured", "batch", "sharded", "batched"):
+for path in ("textured", "batch", "sharded", "batched", "bench", "scale_2048",
+             "scale_8192"):
     PATH_ABSENT[path] += ("clip_pairs",)
+for path in ("bench", "scale_2048", "scale_8192"):
+    PATH_ABSENT[path] += ("merge_runs",)
 for path in PATH_KERNELS:
     if "fused_pass_batch" not in PATH_KERNELS[path]:
         PATH_ABSENT[path] += ("fused_pass_batch",)
-ALL_PHASES = set(range(1, 21))
+ALL_PHASES = set(range(1, 24))
 
 
 def fail(msg):
@@ -230,32 +268,13 @@ def clip_flops(tri, vox, live, nch):
 
 
 def sphere_table(n_tris, res, textured=False):
-    """bench.py's device-resident table: the sphere in voxel space, padded to
-    a power of two, plus its host AABBs.  With textured=True the UV columns
-    hold per-vertex spherical UVs, every row is TRI_TEXTURED with texture 0,
-    and the geometry is unchanged."""
-    from obj2voxel_tpu_torch.constants import ANTI_BLEED, TRI_TEXTURED
-    from obj2voxel_tpu_torch.engine import _pow2_at_least
-    from obj2voxel_tpu_torch.soup import build_tri_table
-    from obj2voxel_tpu_torch.utils.meshes import make_sphere_mesh
+    """bench.py's device-resident table (`obj2voxel_tpu_torch.bench.sphere_table`):
+    the sphere in voxel space, padded to a power of two, plus its host
+    AABBs; textured=True gives its rows spherical UVs and texture 0."""
+    from obj2voxel_tpu_torch.bench import sphere_table as table
 
-    tris, uvs = make_sphere_mesh(n_tris, uvs=True)
-    n = tris.shape[0]
-    scale = (res - ANTI_BLEED) / 2.0
-    tris = (tris + 1.0) * np.float32(scale) + np.float32(ANTI_BLEED / 2.0)
-    n_pad = _pow2_at_least(n)
-    verts = np.zeros((n_pad, 3, 3), np.float32)
-    verts[:n] = tris
-    uv_pad = np.zeros((n_pad, 3, 2), np.float32)
-    if textured:
-        uv_pad[:n] = uvs
-        types, tex = np.full(n_pad, TRI_TEXTURED, np.int32), np.zeros(n_pad, np.int32)
-    else:
-        types, tex = np.ones(n_pad, np.int32), np.full(n_pad, -1, np.int32)
-    table = build_tri_table(verts, uv_pad, types, np.ones((n_pad, 3), np.float32), tex)
-    vmin = np.clip(np.floor(tris.min(axis=1)), 0, res).astype(np.int64)
-    vmax = np.clip(np.floor(tris.max(axis=1)) + 1, 0, res).astype(np.int64)
-    return table, (vmin, vmax)
+    table_np, aabb, _ = table(n_tris, res, textured)
+    return table_np, aabb
 
 
 def palette_texels(seed=12):
@@ -1745,6 +1764,249 @@ def phase_batched_paths(info):
     return total
 
 
+@contextlib.contextmanager
+def env_var(name, value):
+    """Set (or with None unset) one environment variable for a block."""
+    before = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = before
+
+
+def bench_mode(mode, n_tris, want, info, **kw):
+    """One bench entry mode at 1024^3 on the card (a warm run, then 3 timed
+    runs, each asserted to give the warm run's count): gated on `want`
+    voxels; prints its bench.py JSON line.  Returns a detail string."""
+    from obj2voxel_tpu_torch import bench
+
+    t = time.perf_counter()
+    if mode == "host":
+        n, voxels, times = bench.run_host(n_tris, SPHERE_RES)
+    else:
+        n, voxels, times = bench.run_device_resident(
+            n_tris, SPHERE_RES, pull=mode == "pull", **kw)
+    if voxels != want:
+        fail(f"bench {mode} ({n_tris} triangles): {voxels} voxels, want {want}")
+    med = sorted(times)[1]
+    print(f"[bench] {json.dumps(bench.result_line(n, voxels, med, SPHERE_RES, mode))} "
+          f"({info})", flush=True)
+    return (f"{mode} {n} tris: {voxels} voxels, median {med:.4f} s = "
+            f"{n / med / 1e6:.3f} Mtri/s (runs {[round(x, 4) for x in times]}; "
+            f"{time.perf_counter() - t:.1f} s with its set-up)")
+
+
+def phase_bench(info):
+    """The bench entry (obj2voxel_tpu_torch.bench, bench.py's counterpart)
+    on the card: device, pull and host mode on the 2M-triangle sphere at
+    1024^3 BLEND (device and pull 4,936,255 voxels; host its CPU run's
+    count), then device and pull mode on the 10M-triangle table, whose
+    voxel set must be its CPU run's (count and sha256)."""
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    pt.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    want = {"device": SPHERE_VOXELS, "pull": SPHERE_VOXELS, "host": HOST_SPHERE_VOXELS}
+    details = [bench_mode(mode, SPHERE_TRIS, want[mode], info) for mode in bench.MODES]
+    peak2 = torch.cuda.max_memory_allocated() / 2**30
+    t = time.perf_counter()
+    sphere = bench.upload_sphere(SPHERE_10M_TRIS, SPHERE_RES, "cuda")
+    built = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    got = bench.sphere_occupancy(sphere, SPHERE_RES)
+    if got != (SPHERE_10M_VOXELS, SPHERE_10M_SHA256):
+        fail(f"bench 10M: {got}, want {SPHERE_10M_VOXELS} voxels, sha256 "
+             f"{SPHERE_10M_SHA256} (the CPU run's)")
+    details += [bench_mode(mode, SPHERE_10M_TRIS, SPHERE_10M_VOXELS, info,
+                           sphere=sphere) for mode in ("device", "pull")]
+    peak10 = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(pt.LAUNCHES)
+    del sphere
+    torch.cuda.empty_cache()
+    check_path("bench", launches)
+    if launches["combine_pack"] >= launches["fused_pass"]:
+        fail(f"bench main path compacted per pass: {launches}")
+    phase("21 bench entry (2M-tri sphere @ 1024^3 device, pull, host; 10M device, "
+          "pull)",
+          t0, "; ".join(details) + f"; 10M table built and uploaded in {built:.2f} s, "
+          f"its voxel set equal to the CPU run's; peak {peak2:.2f} GiB (2M), "
+          f"{peak10:.2f} GiB (10M); launches {launches}; on {info}")
+    return launches
+
+
+def argb_all(path, value):
+    """Whether every voxel of a VL32 file has ARGB `value`."""
+    return bool((np.fromfile(path, ">u4").reshape(-1, 4)[:, 3] == value).all())
+
+
+def check_file(result, voxels, sha256, what):
+    if result["exit"] != 0 or result["voxels"] != voxels \
+            or result["vl32_sha256"] != sha256:
+        fail(f"{what}: exit {result['exit']}, {result['voxels']} voxels, sha256 "
+             f"{result['vl32_sha256']}; want {voxels}, {sha256} (the CPU run's)")
+
+
+def scale_line(config, desc, n_tris, res, result, info):
+    """scripts/scale_proof.py's JSON line for a config, with this port's
+    fields; printed after `[scale]`."""
+    keys = ("exit", "voxels", "wall_s", "peak_rss_gb", "rss_start_gb",
+            "peak_device_gib", "vl32_sha256", "wave_stats", "stage_s")
+    line = {"config": config, "desc": desc, "triangles": n_tris, "resolution": res,
+            **{k: result[k] for k in keys if k in result}}
+    print(f"[scale] {json.dumps(line)} ({info})", flush=True)
+
+
+def phase_config4(info):
+    """BASELINE config 4 on the card: bench.py's 10M-triangle sphere as a
+    binary STL through `Instance` into VL32 at 2048^3 (MAX): the CPU run's
+    count and bytes, every voxel the STL's one ARGB, K1 and combine_pack
+    launched; again under O2V_TIMING=1 for host seconds by stage (its lines
+    not printed); then the same bytes from the host planner
+    (O2V_HOST_PLAN=1) and from `stream_sharded` in 3 z windows on the one
+    card.  Returns the launches and the first run's (peak RSS, its rise
+    over the RSS at its start)."""
+    import io
+
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch import scale
+    from obj2voxel_tpu_torch.constants import MAX_STRATEGY
+    from obj2voxel_tpu_torch.io.stl_loader import load_stl
+    from obj2voxel_tpu_torch.io.writers import Vl32Writer
+    from obj2voxel_tpu_torch.parallel.mesh import stream_sharded
+    from obj2voxel_tpu_torch.utils.meshes import make_sphere_mesh, write_stl
+
+    t0 = time.perf_counter()
+    res = 2048
+    with tempfile.TemporaryDirectory(prefix="o2v_config4_") as tmp:
+        stl, out = os.path.join(tmp, "sphere10m.stl"), os.path.join(tmp, "out.vl32")
+        tris = make_sphere_mesh(SPHERE_10M_TRIS)
+        n_tris = tris.shape[0]
+        write_stl(stl, tris)
+        del tris
+        made = time.perf_counter() - t0
+        pt.reset_launches()
+        first = scale.voxelize_file(stl, out, res)
+        launches = dict(pt.LAUNCHES)
+        check_file(first, CONFIG4_VOXELS, CONFIG4_SHA256, "config 4")
+        check_path("scale_2048", launches)
+        if launches["combine_pack"] >= launches["fused_pass"]:
+            fail(f"config 4 compacted per pass: {launches}")
+        if not argb_all(out, STL_ARGB):
+            fail(f"config 4: a voxel's ARGB is not {STL_ARGB:#x}")
+        with env_var("O2V_TIMING", "1"), contextlib.redirect_stdout(io.StringIO()):
+            staged = scale.voxelize_file(stl, out, res)
+        check_file(staged, CONFIG4_VOXELS, CONFIG4_SHA256, "config 4 (O2V_TIMING=1)")
+        with env_var("O2V_HOST_PLAN", "1"):
+            host = scale.voxelize_file(stl, out, res)
+        check_file(host, CONFIG4_VOXELS, CONFIG4_SHA256, "config 4, O2V_HOST_PLAN=1")
+        if host["wave_stats"]["host_plan"] != 1 or first["wave_stats"]["host_plan"]:
+            fail(f"config 4: planners {first['wave_stats']}, {host['wave_stats']}")
+        t = time.perf_counter()
+        with open(out, "wb") as f:
+            writer = Vl32Writer(f, res)
+            for xyz, argb in stream_sharded(load_stl(stl), resolution=res,
+                                            strategy=MAX_STRATEGY,
+                                            devices=["cuda:0"] * 3):
+                writer.write(xyz, argb)
+            writer.finalize()
+        sharded = time.perf_counter() - t
+        if scale.file_sha256(out) != CONFIG4_SHA256:
+            fail("config 4 in 3 z windows: other bytes than one device's")
+    desc = f"10M-tri STL -> {res}^3 VL32 (streamed slabs)"
+    scale_line(4, desc, n_tris, res, {**first, "stage_s": staged["stage_s"]}, info)
+    phase("22 config 4 (10M-tri STL -> 2048^3 VL32 through Instance)", t0,
+          f"{first['voxels']} voxels, sha256 equal to the CPU run's, every ARGB "
+          f"{STL_ARGB:#x}; STL written in {made:.1f} s; Instance {first['wall_s']:.3f} s, "
+          f"peak RSS {first['peak_rss_gb']:.3f} GB ({first['rss_start_gb']:.3f} GB at "
+          f"its start), peak device "
+          f"{first['peak_device_gib']:.3f} GiB; {first['wave_stats']}; with "
+          f"O2V_TIMING=1 {staged['wall_s']:.3f} s, host seconds by stage "
+          f"{staged['stage_s']}; "
+          f"O2V_HOST_PLAN=1 the same bytes in {host['wall_s']:.3f} s; 3 z windows "
+          f"the same bytes in {sharded:.3f} s (STL load included); launches "
+          f"{launches}; on {info}")
+    return launches, (first["peak_rss_gb"], first["peak_rss_gb"] - first["rss_start_gb"])
+
+
+def phase_config6(info, config4_rss=None):
+    """BASELINE config 6 on the card: scripts/scale_proof.py's 100k-triangle
+    helix as a binary STL through `Instance` into VL32 at 8192^3: the CPU
+    run's count and bytes, more than MAX_DEVICE_SLABS slabs planned on the
+    host, every voxel the STL's one ARGB, K1 and combine_pack launched, a
+    peak RSS and a rise in RSS over its start each under config 4's
+    (`config4_rss`, when phase 22 ran); then once more with O2V_TIMING=1 (its lines printed, each
+    wave's pass counts abbreviated) for host seconds by stage."""
+    import io
+    import re
+
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch import scale
+    from obj2voxel_tpu_torch.ops.plan_device import MAX_DEVICE_SLABS
+    from obj2voxel_tpu_torch.utils.meshes import make_helix_mesh, write_stl
+
+    t0 = time.perf_counter()
+    res = 8192
+    with tempfile.TemporaryDirectory(prefix="o2v_config6_") as tmp:
+        stl, out = os.path.join(tmp, "helix.stl"), os.path.join(tmp, "out.vl32")
+        tris = make_helix_mesh(100_000)
+        n_tris = tris.shape[0]
+        write_stl(stl, tris)
+        del tris
+        pt.reset_launches()
+        first = scale.voxelize_file(stl, out, res)
+        launches = dict(pt.LAUNCHES)
+        check_file(first, CONFIG6_VOXELS, CONFIG6_SHA256, "config 6")
+        wave = first["wave_stats"]
+        if wave["slabs"] <= MAX_DEVICE_SLABS or wave["host_plan"] != 1:
+            fail(f"config 6 was not planned on the host past {MAX_DEVICE_SLABS} "
+                 f"slabs: {wave}")
+        check_path("scale_8192", launches)
+        if launches["combine_pack"] >= launches["fused_pass"]:
+            fail(f"config 6 compacted per pass: {launches}")
+        if not argb_all(out, STL_ARGB):
+            fail(f"config 6: a voxel's ARGB is not {STL_ARGB:#x}")
+        buf = io.StringIO()
+        with env_var("O2V_TIMING", "1"), contextlib.redirect_stdout(buf):
+            staged = scale.voxelize_file(stl, out, res)
+        check_file(staged, CONFIG6_VOXELS, CONFIG6_SHA256, "config 6 (O2V_TIMING=1)")
+    for line in buf.getvalue().splitlines():
+        print(re.sub(r"counts=\[([^\]]*)\]",
+                     lambda m: f"counts=<{m.group(1).count(',') + 1} passes>", line),
+              flush=True)
+    peak, rise = first["peak_rss_gb"], first["peak_rss_gb"] - first["rss_start_gb"]
+    if config4_rss is None:
+        rss = "; RSS gate against config 4 skipped: phase 22 did not run"
+    else:
+        peak4, rise4 = config4_rss
+        if peak >= peak4 or rise >= rise4:
+            fail(f"config 6's peak RSS {peak:.3f} GB (+{rise:.3f} GB over its start) "
+                 f"is not under config 4's {peak4:.3f} GB (+{rise4:.3f} GB)")
+        rss = (f" (+{rise:.3f} GB; config 4: {peak4:.3f} GB, +{rise4:.3f} GB over "
+               f"its start)")
+    desc = f"100k-tri helix -> {res}^3 VL32 (streamed slabs, host planner)"
+    scale_line(6, desc, n_tris, res, {**first, "stage_s": staged["stage_s"]}, info)
+    phase("23 config 6 (100k-tri helix -> 8192^3 VL32 through Instance, host planner)",
+          t0, f"{first['voxels']} voxels, sha256 equal to the CPU run's, every ARGB "
+          f"{STL_ARGB:#x}; {wave['slabs']} slabs (> {MAX_DEVICE_SLABS}: host planner), "
+          f"{wave}; plan order {wave['rows']} rows = {wave['rows'] * 8} B of int64 "
+          f"uploaded; Instance {first['wall_s']:.3f} s, peak RSS "
+          f"{first['peak_rss_gb']:.3f} GB ({first['rss_start_gb']:.3f} GB at its "
+          f"start){rss}, peak device "
+          f"{first['peak_device_gib']:.3f} GiB; with O2V_TIMING=1 "
+          f"{staged['wall_s']:.3f} s, host seconds by stage {staged['stage_s']}; "
+          f"launches {launches}; on {info}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))))
@@ -1799,6 +2061,13 @@ def main():
         phase_capi()
     if 20 in want:
         by_path["batched"] = phase_batched_paths(info)
+    if 21 in want:
+        by_path["bench"] = phase_bench(info)
+    config4_rss = None
+    if 22 in want:
+        by_path["scale_2048"], config4_rss = phase_config4(info)
+    if 23 in want:
+        by_path["scale_8192"] = phase_config6(info, config4_rss)
     if 8 in want:
         for name, s in stats.items():
             lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f} ms"

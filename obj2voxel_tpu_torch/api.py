@@ -18,11 +18,13 @@ Usage:
 from __future__ import annotations
 
 import io as _io
+import os
+import time
 
 import numpy as np
 
 from . import constants as C
-from .engine import voxelize_soup
+from .engine import timing_line, voxelize_soup
 from .io.obj_loader import load_obj
 from .io.png_io import argb_to_pixels, load_image, load_image_bytes, pixels_to_argb
 from .io.stl_loader import load_stl
@@ -244,10 +246,15 @@ class Instance:
             log.error("No resolution was specified")
             return C.ERR_NO_RESOLUTION
 
+        timing = os.environ.get("O2V_TIMING") == "1"
+        t0 = time.perf_counter()
         loaded = self._open_input()
         if loaded is None:
             return C.ERR_IO_ERROR_ON_OPEN_INPUT_FILE
         soup, pool = loaded
+        if timing:
+            dt = time.perf_counter() - t0
+            timing_line("load", dt, f"load {dt * 1000:.0f}ms ({len(soup)} triangles)")
 
         sink, close = self._open_output()
         if sink is None:
@@ -278,20 +285,28 @@ class Instance:
             else:
                 batches = voxelize_soup(soup, pool, device=self.device, **opts)
 
-            ok = True
+            ok, t_write, n_writes = True, 0.0, 0
             for xyz, argb in batches:
+                t1 = time.perf_counter()
                 try:
                     sink.write(xyz, argb)
                 except OSError:
                     ok = False
                     break
+                t_write += time.perf_counter() - t1
+                n_writes += 1
                 if getattr(sink, "good", True) is False:
                     ok = False
                     break
             if not ok:
                 log.error("Voxelization failed because of IO error")
                 return C.ERR_IO_ERROR_DURING_VOXEL_WRITE
+            t1 = time.perf_counter()
             sink.finalize()
+            if timing:
+                t_write += time.perf_counter() - t1
+                timing_line("write", t_write, f"write {t_write * 1000:.0f}ms "
+                            f"({n_writes} batches, {sink.voxels_written} voxels)")
             log.info(f"All {sink.voxels_written} voxels written")
             return C.ERR_OK
         finally:

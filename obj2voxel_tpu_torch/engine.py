@@ -49,13 +49,16 @@ order, into launches of K1's batched form (`fused_pass_batch`) of 8, 4 or
 2 passes up to B; a lone remainder runs as a single pass.  Passes of
 different slabs batch together.  Each slab still merges its passes in pass
 order, so the output is the unbatched one, byte for byte.  `WAVE_STATS`
-counts the last call's passes, dispatches and batched passes.
+counts the last call's passes, dispatches and batched passes, its slabs,
+waves and plan-order rows, and says which planner planned it.
 
 Knobs, read as the JAX package reads them: O2V_MAX_PASS_BUDGET (at import:
 MAX_PASS_BUDGET), and per `stream_slabs` call O2V_WAVE_CAP (slots in
 flight a wave), O2V_HOST_PLAN=1 (plan on the host), O2V_GROUP (triangles
 per planning unit), O2V_BATCH, O2V_BATCH_FORCE and O2V_TIMING=1
-(`[o2v-timing]` lines of the plan, each wave and its merges on stdout).
+(`[o2v-timing]` lines on stdout: the host prep, the table and its upload,
+the plan, each wave, its merges and its pulls, and in `api.Instance` the
+input's load and the writer; `TIMING_S` sums their seconds by stage).
 
 Batch mode (`voxelize_batch`, obj2voxel_tpu/engine.py:1501-1587) stacks many
 small meshes along z, each normalized to its own grid, into one
@@ -126,8 +129,22 @@ BATCH_BLOCK = 8192
 
 #: The last `stream_slabs` call's passes, dispatches (single passes and
 #: batched launches) and passes run batched (obj2voxel_tpu/engine.py
-#: WAVE_STATS); not thread-safe, like the JAX package's.
-WAVE_STATS = {"passes": 0, "dispatches": 0, "batched": 0}
+#: WAVE_STATS), and, beyond the JAX package's keys, its slabs, its waves,
+#: its plan-order rows and whether the host planner planned it (1) or the
+#: device planner (0); not thread-safe, like the JAX package's.
+WAVE_STATS = {"passes": 0, "dispatches": 0, "batched": 0, "slabs": 0, "waves": 0,
+              "rows": 0, "host_plan": 0}
+
+#: Under O2V_TIMING=1, the host seconds of each `[o2v-timing]` stage (load,
+#: prepare, table, plan, passes, merges, pulls, write), summed over the
+#: lines printed since the caller last cleared it.
+TIMING_S: dict[str, float] = {}
+
+
+def timing_line(stage: str, seconds: float, text: str):
+    """Print one `[o2v-timing]` line and add `seconds` to TIMING_S[stage]."""
+    TIMING_S[stage] = TIMING_S.get(stage, 0.0) + seconds
+    print(f"[o2v-timing] {text}", flush=True)
 
 
 def _pow2_at_least(n: int, minimum: int = 256) -> int:
@@ -358,7 +375,12 @@ def voxelize_soup(
     if len(soup) == 0:
         return
     sample_res = resolution * supersampling
+    t0 = time.perf_counter()
     host = prepare_soup(soup, sample_res, unit_transform, bounds, subdivide)
+    if os.environ.get("O2V_TIMING") == "1":
+        dt = time.perf_counter() - t0
+        timing_line("prepare", dt, f"prepare {dt * 1000:.0f}ms ({len(soup)} -> "
+                    f"{host[0].shape[0]} triangles)")
     gen = voxelize_grid(
         *host, upload_pool(pool, device),
         device=device, stride=sample_res, z_extent=sample_res,
@@ -425,11 +447,16 @@ def voxelize_grid(
     are `stream_slabs`'s."""
     if verts_host.shape[0] == 0:
         return
+    t0 = time.perf_counter()
     table, aabb = host_table(verts_host, uvs_host, types_host, rgb_host, tex_host,
                              stride=stride, z_extent=z_extent)
     # the generator frame lives for the whole stream: keep no host copies
     del verts_host, uvs_host, types_host, rgb_host, tex_host
     table = torch.from_numpy(table).to(device)
+    if os.environ.get("O2V_TIMING") == "1":
+        dt = time.perf_counter() - t0
+        timing_line("table", dt, f"table+upload {dt * 1000:.0f}ms "
+                    f"rows={table.shape[0]}")
     yield from stream_slabs(
         table, pool, aabb_host=aabb, stride=stride,
         z_extent=z_extent, is_blend=is_blend, do_down=do_down, pair_tile=pair_tile,
@@ -498,7 +525,8 @@ def stream_slabs(
     can_batch = batch_cap > 1 and not textured and (
         tri_table.device.type == "cuda"
         or os.environ.get("O2V_BATCH_FORCE") == "1")
-    WAVE_STATS.update(passes=0, dispatches=0, batched=0)
+    WAVE_STATS.update(passes=0, dispatches=0, batched=0, slabs=0, waves=0,
+                      rows=0, host_plan=0)
 
     order = segments = None
     if os.environ.get("O2V_HOST_PLAN") != "1":
@@ -524,15 +552,18 @@ def stream_slabs(
             return
         order = torch.from_numpy(order_np.astype(np.int64)).to(tri_table.device)
         group = 1
+        WAVE_STATS["host_plan"] = 1
     table = gather_ordered(tri_table, order, segments[-1].r1, group)
     del order
     if timing:
-        print(f"[o2v-timing] plan+gather {(time.perf_counter() - t0) * 1000:.0f}ms "
-              f"rows={segments[-1].r1} segments={len(segments)}", flush=True)
+        dt = time.perf_counter() - t0
+        timing_line("plan", dt, f"plan+gather {dt * 1000:.0f}ms "
+                    f"rows={segments[-1].r1} segments={len(segments)}")
 
     by_slab: dict[tuple[int, int], list] = {}
     for seg in segments:
         by_slab.setdefault((seg.z_lo, seg.z_hi), []).append(seg)
+    WAVE_STATS.update(slabs=len(by_slab), rows=segments[-1].r1)
 
     for slabs, dispatches in _waves(list(by_slab.items()), stride, max_budget,
                                     wave_cap, batch_cap if can_batch else 1):
@@ -560,17 +591,19 @@ def stream_slabs(
         WAVE_STATS["passes"] += n_wave_passes
         WAVE_STATS["dispatches"] += len(dispatches)
         WAVE_STATS["batched"] += n_batched
+        WAVE_STATS["waves"] += 1
 
         t_disp = time.perf_counter() if timing else 0.0
         counts = torch.cat(parts).tolist()
         del parts
         if timing:
             t2 = time.perf_counter()
-            print(f"[o2v-timing]   wave: {len(slabs)} slabs {n_wave_passes} passes "
-                  f"({len(dispatches)} dispatches, {n_batched} batched) "
-                  f"{(t2 - t1) * 1000:.0f}ms (dispatch {(t_disp - t1) * 1000:.0f}ms, "
-                  f"drain+pull {(t2 - t_disp) * 1000:.0f}ms) counts={counts}",
-                  flush=True)
+            timing_line("passes", t2 - t1,
+                        f"  wave: {len(slabs)} slabs {n_wave_passes} passes "
+                        f"({len(dispatches)} dispatches, {n_batched} batched) "
+                        f"{(t2 - t1) * 1000:.0f}ms (dispatch "
+                        f"{(t_disp - t1) * 1000:.0f}ms, drain+pull "
+                        f"{(t2 - t_disp) * 1000:.0f}ms) counts={counts}")
             t1 = t2
         merged = []
         for (z_lo, z_hi, n_passes), slab_handles in zip(slabs, handles):
@@ -596,9 +629,11 @@ def stream_slabs(
         )
         if timing and merged:
             t3 = time.perf_counter()
-            print(f"[o2v-timing]   {len(merged)} merges {(t3 - t1) * 1000:.0f}ms "
-                  f"(dispatch {(t_mdisp - t1) * 1000:.0f}ms, "
-                  f"drain+pull {(t3 - t_mdisp) * 1000:.0f}ms)", flush=True)
+            timing_line("merges", t3 - t1,
+                        f"  {len(merged)} merges {(t3 - t1) * 1000:.0f}ms "
+                        f"(dispatch {(t_mdisp - t1) * 1000:.0f}ms, "
+                        f"drain+pull {(t3 - t_mdisp) * 1000:.0f}ms)")
+        t_pull = 0.0
         for (z_lo, z_hi, (xyz, argb, _)), count in zip(merged, mcounts):
             _log.spam(f"Voxelized slab z[{z_lo},{z_hi}) -> {count}")
             if _dbg.DEBUG:
@@ -613,7 +648,13 @@ def stream_slabs(
                 if device_outputs:
                     yield xyz, argb, count
                 else:
-                    yield _pull(xyz, count), _pull(argb, count)
+                    t4 = time.perf_counter()
+                    out = _pull(xyz, count), _pull(argb, count)
+                    t_pull += time.perf_counter() - t4
+                    yield out
+        if timing and merged and not device_outputs:
+            timing_line("pulls", t_pull, f"  {len(merged)} pulls "
+                        f"{t_pull * 1000:.0f}ms")
 
 
 def voxelize_batch(

@@ -8,7 +8,9 @@ ten calls of K1, K4, K5 and K6 alone at chip_smoke.py's timing shapes
 combine`: the fused `combine_pack`, K2 and K3 alone, and the engine's call)
 on phase 3's stream and on the sphere's real merge input; and of one warm
 `voxelize_batch` run of phase 17's 1000 meshes (`--paths batch`: the trace,
-then the host functions by cumulative time under cProfile).  `--paths
+then the host functions by cumulative time under cProfile); and of one warm
+run of the bench entry's device mode on bench.py's 10M-triangle table at
+1024^3 BLEND (`--paths sphere10m`, chip_smoke.py phase 21's).  `--paths
 schedule` prints the pass schedule of the sphere, the supersampled sphere
 and phase 17's batch under O2V_BATCH=1 and =8 (passes, waves, dispatches,
 batched launches); alone it needs no card (`--paths untextured` prints the
@@ -248,7 +250,7 @@ def profile_batch(top):
 
 
 PATHS = ("untextured", "merge-runs", "supersampled", "textured", "k1", "k4",
-         "k5", "k6", "combine", "batch", "schedule")
+         "k5", "k6", "combine", "batch", "schedule", "sphere10m")
 
 
 def main():
@@ -317,6 +319,14 @@ def main():
         profile_batch(top)
     if "schedule" in paths:
         schedules()
+    if "sphere10m" in paths:
+        from obj2voxel_tpu_torch import bench
+
+        del table
+        table, aabb, _ = bench.upload_sphere(cs.SPHERE_10M_TRIS, cs.SPHERE_RES, "cuda")
+        print(f"[schedule sphere10m] {pass_schedule(table, aabb, cs.SPHERE_RES)}",
+              flush=True)
+        profile("sphere10m BLEND", table, None, aabb, True, top)
     if "textured" in paths:
         table_np, aabb = cs.sphere_table(cs.SPHERE_TRIS, cs.SPHERE_RES, textured=True)
         pool, _ = cs.palette_pool()

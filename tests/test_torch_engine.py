@@ -221,6 +221,7 @@ def test_package_imports_no_jax():
         "import obj2voxel_tpu_torch.ops.merge_pallas; "
         "import obj2voxel_tpu_torch.parallel.mesh, obj2voxel_tpu_torch.ops.morton; "
         "import obj2voxel_tpu_torch.capi; "
+        "import obj2voxel_tpu_torch.bench, obj2voxel_tpu_torch.scale; "
         "from obj2voxel_tpu_torch import densify, voxelize_batch; "
         "from obj2voxel_tpu_torch.ops.clip_pallas import "
         "clip_triangles_to_voxels_pallas; "

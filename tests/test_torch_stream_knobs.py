@@ -22,6 +22,7 @@ plain version of K1's batched form).
   (also in parallel/mesh.py's windows) and O2V_MAX_PASS_BUDGET (read at
   import, so in a fresh interpreter); O2V_TIMING=1 prints the JAX package's
   `[o2v-timing]` lines, each wave with its dispatches and batched passes,
+  between the port's own lines of the host prep, the table and the pulls,
   and nothing without it.
 """
 
@@ -273,6 +274,9 @@ def test_timing_lines(monkeypatch, capsys):
     assert _bytes(soup) == want
     lines = capsys.readouterr().out.splitlines()
     stats = engine.WAVE_STATS
+    assert lines[0].startswith("[o2v-timing] prepare ")
+    assert lines[1].startswith("[o2v-timing] table+upload ")
+    lines = lines[2:]
     assert lines[0].startswith("[o2v-timing]   hint ")
     assert lines[1].startswith("[o2v-timing] plan+gather ")
     assert " rows=6000 segments=" in lines[1]
@@ -281,4 +285,5 @@ def test_timing_lines(monkeypatch, capsys):
         f"({stats['dispatches']} dispatches, {stats['batched']} batched) ")
     assert " (dispatch " in lines[2] and "counts=[" in lines[2]
     assert lines[3].startswith("[o2v-timing]   1 merges ")
-    assert len(lines) == 4
+    assert lines[4].startswith("[o2v-timing]   1 pulls ")
+    assert len(lines) == 5
