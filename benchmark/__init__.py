@@ -1,0 +1,6 @@
+"""The benchmark of the PyTorch and CUDA voxelizer `obj2voxel_tpu_torch`.
+
+`python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>` runs one cell of `BENCHMARK.json` once; README.md says which
+file holds what.
+"""
