@@ -3,11 +3,11 @@ JAX package's voxelize_batch on one mixed batch.
 
 Parity contract (PARITY.md "Fidelity scope"): the voxel set of each mesh
 exactly, MAX colors byte for byte, BLEND colors within 1 LSB per channel;
-densify exactly; the cubes' closed form exactly.  The JAX reference runs op
-by op (`jax.disable_jit()`), once per strategy, in a module-scoped fixture.
+densify exactly; the cubes' closed form exactly.  The JAX reference ran op
+by op (`jax.disable_jit()`), once per strategy; tests/fixtures/jax_batch.npz
+holds its outputs (scripts/jax_test_references.py).
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -15,10 +15,10 @@ import torch
 from conftest import (
     UNIT_CUBE_QUADS, UNIT_CUBE_VERTICES, expected_unit_cube_voxels, quads_to_tris,
 )
-from obj2voxel_tpu import constants as C
+from jax_reference import reference
 from obj2voxel_tpu import engine as jeng
-from obj2voxel_tpu.ops.color import TexturePool as JaxPool
 import obj2voxel_tpu_torch as pt
+from obj2voxel_tpu_torch import constants as C
 
 torch.set_num_threads(1)
 
@@ -57,6 +57,11 @@ def _arrays(seed=0):
     return meshes, texture
 
 
+def flat_arrays(meshes, texture):
+    """Every input array of the batch, an empty mesh as an empty array."""
+    return [a for m in meshes for a in (m or (np.zeros(0, np.float32),))] + [texture]
+
+
 def _batch(pkg_soup, pkg_pool):
     meshes, texture = _arrays()
     soups = [pkg_soup.empty() if m is None else pkg_soup(*m) for m in meshes]
@@ -84,13 +89,14 @@ def _max_lsb(a, b):
 
 @pytest.fixture(scope="module")
 def jax_batches():
-    soups, pool = _batch(jeng.TriangleSoup, JaxPool)
+    """The JAX package's `voxelize_batch` of each case: (xyz, argb) a mesh."""
+    meshes, texture = _arrays()
     refs = {}
-    with jax.disable_jit():
-        for name, (r, ss, strategy) in CASES.items():
-            refs[name] = jeng.voxelize_batch(soups, pool, resolution=r,
-                                             supersampling=ss, strategy=strategy,
-                                             pair_tile=TILE)
+    for name, (r, ss, strategy) in CASES.items():
+        ref = reference("batch", name, *flat_arrays(meshes, texture), resolution=r,
+                        supersampling=ss, strategy=strategy, pair_tile=TILE)
+        refs[name] = [(ref[f"m{i}_xyz"].astype(np.int32), ref[f"m{i}_argb"])
+                      for i in range(len(meshes))]
     return refs
 
 

@@ -13,7 +13,9 @@ the plain version `fused_pass_batch_ref`.
   the clean run, BLEND, and MAX supersampled (`do_down`).
 - It agrees with the JAX package's `_bucket_pass_batch(use_pallas=False)`,
   whose Pallas kernel XLA compiles for the CPU in interpret mode (one
-  compile, some 40 s): keys and live counts exactly, channels to rtol 5e-5
+  compile, some 40 s; tests/fixtures/jax_batched_pass.npz holds its
+  outputs, scripts/jax_test_references.py writes them): keys and live
+  counts exactly, channels to rtol 5e-5
   and atol 1e-5, the JAX test's own tolerance.  The JAX kernel packs each
   8192-slot block's live pairs into whole 128-slot rows
   (ops/pack_pallas.py `flush_packed`), so its count is a multiple of 128
@@ -31,13 +33,12 @@ the plain version `fused_pass_batch_ref`.
   that `fused_pass` rejects.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from jax_reference import reference
 import obj2voxel_tpu_torch as pt
-from obj2voxel_tpu.engine import _bucket_pass_batch
 from obj2voxel_tpu_torch import engine
 from obj2voxel_tpu_torch.constants import BLEND_STRATEGY, MAX_STRATEGY
 from obj2voxel_tpu_torch.ops import _cuda, pass_fused
@@ -170,19 +171,29 @@ def test_stream_reads_nothing_past_a_count(monkeypatch, strategy, supersampling)
     assert engine.WAVE_STATS["batched"] >= 2 and sum(poisoned) > 0
 
 
-def test_plain_batch_matches_jax_bucket_pass_batch():
-    expand, res, budget = 8, 8, 8192
+#: the JAX comparison's pass: (expand, res, budget)
+JAX_PASS = (8, 8, 8192)
+
+
+def jax_pass_inputs():
+    """The JAX comparison's table and its passes' five int32 columns."""
+    expand, res, budget = JAX_PASS
     rows = budget // expand
     table_np = _table(B * rows + 32, res, 1.2, 3)
     passes = _passes(rows, res)
+    cols = [np.array([p[j] for p in passes], np.int32) for j in range(5)]
+    return table_np, passes, cols
+
+
+def test_plain_batch_matches_jax_bucket_pass_batch():
+    expand, res, budget = JAX_PASS
+    table_np, passes, cols = jax_pass_inputs()
     got = fused_pass_batch(torch.from_numpy(table_np), passes, expand=expand,
                            budget=budget)
-    cols = [np.array([p[j] for p in passes], np.int32) for j in range(5)]
-    keys, chans, counts = _bucket_pass_batch(
-        jnp.asarray(np.ascontiguousarray(table_np.T)),
-        *(jnp.asarray(c) for c in cols), jnp.int32(res),
-        expand=expand, budget=budget, nbatch=B, use_pallas=False)
-    keys, counts = np.asarray(keys), np.asarray(counts)
+    ref = reference("batched_pass", "bucket_pass_batch", table_np, *cols,
+                    res=res, expand=expand, budget=budget, nbatch=B)
+    keys, counts = ref["keys"], ref["counts"]
+    chans = [ref[f"chan{j}"] for j in range(4)]
     assert int(got[5].sum()) > 0
     for b in range(B):
         n = int(got[5][b])
@@ -192,7 +203,7 @@ def test_plain_batch_matches_jax_bucket_pass_batch():
         np.testing.assert_array_equal(got[0][b, :n].numpy(), keys[b][live])
         assert bool((got[0][b, n:] == INV).all())
         for g, w in zip(got[1:5], chans):
-            np.testing.assert_allclose(g[b, :n].numpy(), np.asarray(w)[b][live],
+            np.testing.assert_allclose(g[b, :n].numpy(), w[b][live],
                                        rtol=5e-5, atol=1e-5)
             assert bool((g[b, n:] == 0).all())
 

@@ -1,7 +1,8 @@
 """The port's clip and K1 plain version against the JAX package on the CPU.
 
-Same numpy inputs through `obj2voxel_tpu` (JAX, plain XLA path) and
-`obj2voxel_tpu_torch` (plain PyTorch versions).  Weights are held to
+Same numpy inputs through `obj2voxel_tpu` (JAX, plain XLA path, its
+outputs held in tests/fixtures/jax_clip.npz by scripts/jax_test_references.py)
+and `obj2voxel_tpu_torch` (plain PyTorch versions).  Weights are held to
 rtol 1e-6; keys, counts and order exactly.
 """
 
@@ -9,13 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from obj2voxel_tpu import engine as jeng
-from obj2voxel_tpu.ops import clip as jclip
+from jax_reference import reference
 from obj2voxel_tpu_torch.ops import clip as tclip
 from obj2voxel_tpu_torch.ops.pass_fused import fused_pass, fused_pass_ref
+from obj2voxel_tpu_torch.soup import build_tri_table
 
 torch.set_num_threads(1)
 
@@ -39,7 +37,8 @@ def _clip_inputs(seed, p=3000):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_clip_channels_matches_jax(seed):
     tri, vox = _clip_inputs(seed)
-    jw, ju, jv = (np.asarray(x) for x in jclip.clip_channels(jnp.asarray(tri), jnp.asarray(vox)))
+    ref = reference("clip", f"clip_channels_{seed}", tri, vox)
+    jw, ju, jv = ref["w"], ref["u"], ref["v"]
     tw, tu, tv = (x.numpy() for x in tclip.clip_channels(torch.from_numpy(tri), torch.from_numpy(vox)))
     assert (jw > 0).sum() > 100
     np.testing.assert_array_equal(tw > 0, jw > 0)
@@ -54,34 +53,22 @@ def _pass_table(seed, n=600, res=32):
     base = rng.uniform(0, res - 4, size=(n, 1, 3))
     size = rng.choice([0.8, 2.5, 5.0], size=(n, 1, 1))
     verts = (base + rng.uniform(0, 1, size=(n, 3, 3)) * size).astype(np.float32)
-    table = jeng.build_tri_table(
+    table = build_tri_table(
         verts, np.zeros((n, 3, 2), np.float32), np.full(n, 2, np.int32),
         rng.random((n, 3), dtype=np.float32), np.full(n, -1, np.int32),
     )
     return table
 
 
-def _jax_pass(table, budget, desc, z_lo, z_hi, stride):
-    expand, r0, n_rows, local_base, wide = desc
-    padded = np.zeros((table.shape[0] + budget, 24), np.float32)
-    padded[: table.shape[0]] = table
-    # op by op: a jitted XLA CPU program contracts multiply-adds into FMAs,
-    # which the port (and its CUDA kernel, built with --fmad=false) does not
-    with jax.disable_jit():
-        return _jax_pass_eager(padded, budget, desc, z_lo, z_hi, stride)
-
-
-def _jax_pass_eager(padded, budget, desc, z_lo, z_hi, stride):
-    expand, r0, n_rows, local_base, wide = desc
-    keys, chans, _, _, count = jeng._bucket_pass(
-        jnp.asarray(padded.T), jnp.zeros((1,), jnp.uint32),
-        jnp.zeros((1, 4), jnp.int32),
-        jeng.pass_scalars(r0, n_rows, local_base, z_lo, z_hi, stride, False, False),
-        expand=expand, budget=budget, use_pallas=False, wide_local=wide,
-        finalize=False, fused=False,
-    )
-    n = int(count)
-    return np.asarray(keys)[:n], [np.asarray(c)[:n] for c in chans]
+def _jax_pass(case, table, budget, desc, z_lo, z_hi, stride):
+    """The JAX package's `_bucket_pass` (plain XLA path, op by op: a jitted
+    XLA CPU program contracts multiply-adds into FMAs, which the port and
+    its CUDA kernel, built with --fmad=false, do not): the live keys and
+    four channels, key-sorted."""
+    desc = tuple(int(x) for x in desc)
+    ref = reference("clip", case, table, budget=budget, desc=desc, z_lo=z_lo,
+                    z_hi=z_hi, stride=stride)
+    return ref["keys"], [ref[f"chan{j}"] for j in range(4)]
 
 
 def _port_pass_sorted(table, budget, desc, z_lo, z_hi, stride):
@@ -98,23 +85,37 @@ def _port_pass_sorted(table, budget, desc, z_lo, z_hi, stride):
     return sk.numpy(), [c[:n][idx].numpy() for c in out[1:5]]
 
 
-@pytest.mark.parametrize(
-    "desc",
-    [
-        (1, 0, 600, 0, False),
-        (8, 10, 500, 0, False),
-        (64, 0, 64, 0, False),
-        (64, 500, 64, 0, False),  # overread past the table's end is dead
-    ],
-    ids=["expand1", "expand8", "expand64", "expand64-tail"],
-)
-def test_fused_pass_plain_matches_jax(desc):
+PASS_DESCS = {
+    "expand1": (1, 0, 600, 0, False),
+    "expand8": (8, 10, 500, 0, False),
+    "expand64": (64, 0, 64, 0, False),
+    "expand64-tail": (64, 500, 64, 0, False),  # overread past the table's end is dead
+}
+
+
+def pass_case(name):
+    """(table, budget, desc, z_lo, z_hi, stride) of a `PASS_DESCS` case."""
+    desc = PASS_DESCS[name]
     table = _pass_table(3)
     budget, z_lo, z_hi, stride = 4096, 2, 30, 32
     if desc[0] * desc[2] > budget:
         desc = (desc[0], desc[1], budget // desc[0], desc[3], desc[4])
     desc = (desc[0], desc[1], min(desc[2], table.shape[0] - desc[1]), desc[3], desc[4])
-    jk, jc = _jax_pass(table, budget, desc, z_lo, z_hi, stride)
+    return table, budget, desc, z_lo, z_hi, stride
+
+
+def wide_local_case(local_base):
+    """One giant slanted triangle: AABB 64 x 64 x 3 = 12288 slots > budget."""
+    table = np.zeros((1, 24), np.float32)
+    table[0, 0:9] = [0.5, 0.5, 0.5, 63.5, 0.5, 2.5, 0.5, 63.5, 2.5]
+    table[0, 17:20] = [0.1, 0.5, 0.9]
+    return table, 4096, (4096, 0, 1, local_base, True), 0, 64, 64
+
+
+@pytest.mark.parametrize("name", list(PASS_DESCS))
+def test_fused_pass_plain_matches_jax(name):
+    table, budget, desc, z_lo, z_hi, stride = pass_case(name)
+    jk, jc = _jax_pass(name, table, budget, desc, z_lo, z_hi, stride)
     tk, tc = _port_pass_sorted(table, budget, desc, z_lo, z_hi, stride)
     assert jk.size > 100
     np.testing.assert_array_equal(tk, jk)
@@ -124,13 +125,9 @@ def test_fused_pass_plain_matches_jax(desc):
 
 @pytest.mark.parametrize("local_base", [0, 4096])
 def test_fused_pass_plain_wide_local_matches_jax(local_base):
-    # one giant slanted triangle: AABB 64 x 64 x 3 = 12288 slots > budget
-    table = np.zeros((1, 24), np.float32)
-    table[0, 0:9] = [0.5, 0.5, 0.5, 63.5, 0.5, 2.5, 0.5, 63.5, 2.5]
-    table[0, 17:20] = [0.1, 0.5, 0.9]
-    desc = (4096, 0, 1, local_base, True)
-    jk, jc = _jax_pass(table, 4096, desc, 0, 64, 64)
-    tk, tc = _port_pass_sorted(table, 4096, desc, 0, 64, 64)
+    case = wide_local_case(local_base)
+    jk, jc = _jax_pass(f"wide_local_{local_base}", *case)
+    tk, tc = _port_pass_sorted(*case)
     assert jk.size > 100
     np.testing.assert_array_equal(tk, jk)
     for a, b in zip(tc, jc):

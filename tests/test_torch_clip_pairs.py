@@ -13,16 +13,16 @@ Tolerances:
   moves by 2.7e-6 relative), u and v on occupied pairs to rtol 1e-5 with
   atol 1e-4 (the contracted edge-plane intersections move UVs of up to 3 in
   magnitude by up to 3.4e-5 on four of these pairs).
+
+tests/fixtures/jax_clip_pairs.npz holds the three JAX outputs
+(scripts/jax_test_references.py).
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from obj2voxel_tpu.ops.clip import clip_channels, clip_triangles_to_voxels
-from obj2voxel_tpu.ops.clip_pallas import clip_pairs_pallas
+from jax_reference import reference
 from obj2voxel_tpu_torch.ops.clip_pallas import clip_pairs, clip_pairs_ref
 
 torch.set_num_threads(1)
@@ -65,11 +65,16 @@ def _channels(verts, uvs, vox):
     return tri, vox4
 
 
-@pytest.fixture(scope="module")
-def inputs():
+def make_inputs():
+    """(verts, uvs, vox, (tri, vox4)) of 3000 random and 2000 grazing pairs."""
     parts = [_pairs(0, 3000), _grazing(1, 2000)]
     verts, uvs, vox = (np.concatenate(x) for x in zip(*parts))
     return verts, uvs, vox, _channels(verts, uvs, vox)
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    return make_inputs()
 
 
 @pytest.fixture(scope="module")
@@ -80,9 +85,8 @@ def port_out(inputs):
 
 def test_plain_matches_clip_channels_exactly(inputs, port_out):
     tri, vox4 = inputs[3]
-    with jax.disable_jit():
-        w, u, v = (np.asarray(x)[0] for x in clip_channels(
-            jnp.asarray(tri), jnp.asarray(vox4)))
+    ref = reference("clip_pairs", "clip_channels", tri, vox4)
+    w, u, v = ref["w"], ref["u"], ref["v"]
     assert (w > 0).sum() > 1000 and (w == 0).sum() > 500
     np.testing.assert_array_equal(port_out[0], w)
     np.testing.assert_array_equal(port_out[1], u)
@@ -92,17 +96,14 @@ def test_plain_matches_clip_channels_exactly(inputs, port_out):
 
 def test_plain_matches_jnp_oracle(inputs, port_out):
     verts, uvs, vox, _ = inputs
-    with jax.disable_jit():
-        w, uv = clip_triangles_to_voxels(
-            jnp.asarray(verts), jnp.asarray(uvs), jnp.asarray(vox.astype(np.int32)))
-    np.testing.assert_array_equal(port_out[0], np.asarray(w))
-    np.testing.assert_array_equal(port_out[1:3].T, np.asarray(uv))
+    ref = reference("clip_pairs", "oracle", verts, uvs, vox.astype(np.int32))
+    np.testing.assert_array_equal(port_out[0], ref["w"])
+    np.testing.assert_array_equal(port_out[1:3].T, ref["uv"])
 
 
 def test_plain_matches_pallas_interpret(inputs, port_out):
     tri, vox4 = inputs[3]
-    want = np.asarray(clip_pairs_pallas(jnp.asarray(tri), jnp.asarray(vox4),
-                                        interpret=True))
+    want = reference("clip_pairs", "pallas_interpret", tri, vox4)["out"]
     assert want.shape == port_out.shape == (4, tri.shape[1])
     occupied = want[0] > 1e-6
     np.testing.assert_array_equal(port_out[0] > 1e-6, occupied)

@@ -4,16 +4,16 @@ against the JAX package.
 The JAX oracle is obj2voxel_tpu.ops.combine.combine_sorted (stable sort +
 associative scan + tail compaction), the same oracle the Pallas kernel is
 held to in test_combine_pallas.py.  MAX must match exactly (ties keep the
-earliest element); BLEND sums to rtol 1e-6 (another summation order).
+earliest element); BLEND sums to rtol 1e-6 (another summation order).  The
+oracle's outputs are those of tests/fixtures/jax_combine.npz
+(scripts/jax_test_references.py).
 """
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
-from obj2voxel_tpu.ops import combine as jcomb
+from jax_reference import reference
 from obj2voxel_tpu_torch.ops import combine as tcomb
 from obj2voxel_tpu_torch.engine import _combine_presorted
 from obj2voxel_tpu_torch.ops.combine_pallas import (
@@ -41,12 +41,60 @@ def _stream(seed, n_keys, p=4096):
     return keys, w, rgb
 
 
-def _jax_combined(keys, w, rgb, is_blend):
-    chans = jcomb.premultiply(jnp.asarray(w), jnp.asarray(rgb))
-    sk, sch = jcomb.sort_channels(jnp.asarray(keys), chans)
-    ok, och, oc = jcomb.combine_sorted(sk, sch, is_blend)
-    oc = int(oc)
-    return np.asarray(ok)[:oc], np.stack([np.asarray(c)[:oc] for c in och], -1)
+def _jax_combined(case, keys, w, rgb, is_blend):
+    """The oracle's live keys and (w, r, g, b) rows of the stream."""
+    ref = reference("combine", case, keys, w, rgb, is_blend=is_blend)
+    return ref["keys"], ref["vals"]
+
+
+def _tag(is_blend):
+    return "blend" if is_blend else "max"
+
+
+def _tie_stream():
+    """Two rows of key 7 with equal weights, red first."""
+    keys = np.full(64, INV, np.int32)
+    w = np.zeros(64, np.float32)
+    rgb = np.zeros((64, 3), np.float32)
+    keys[3] = keys[9] = 7
+    w[3] = w[9] = 0.5
+    rgb[3] = [1.0, 0.0, 0.0]
+    rgb[9] = [0.0, 1.0, 0.0]
+    return keys, w, rgb
+
+
+def _single_run(p=4096):
+    keys = np.zeros(p, np.int32)
+    w = np.full(p, 0.25, np.float32)
+    rgb = np.tile(np.asarray([[0.2, 0.4, 0.8]], np.float32), (p, 1))
+    return keys, w, rgb
+
+
+def finalize_inputs():
+    """(w, rgb) of the finalize-and-pack case."""
+    rng = np.random.default_rng(9)
+    p = 2000
+    w = rng.random(p, dtype=np.float32) * 3
+    w[:50] = 0.0
+    rgb = rng.random((p, 3), dtype=np.float32)
+    # exact quantization boundaries (Kd 0.1 -> byte 26 needs an exact divide)
+    rgb[50:60] = 0.1
+    rgb[60:70] = 0.5 / 255.0
+    return w, rgb
+
+
+def combined_cases():
+    """Every oracle case: name -> ((keys, w, rgb), is_blend)."""
+    cases = {"tie": (_tie_stream(), False)}
+    for is_blend in (True, False):
+        tag = _tag(is_blend)
+        for n_keys in (3, 50, 4096):
+            cases[f"segment_{n_keys}_{tag}"] = (_stream(42, n_keys), is_blend)
+        cases[f"combine_sorted_{tag}"] = (_stream(7, 600, p=8192), is_blend)
+        cases[f"single_run_{tag}"] = (_single_run(), is_blend)
+        for c in COMBINE_PACK_CASES:
+            cases[f"combine_pack_{c}_{tag}"] = (_combine_pack_case(c), is_blend)
+    return cases
 
 
 def _port_sorted(keys, w, rgb):
@@ -66,7 +114,8 @@ def _check(got_k, got_v, want_k, want_v, is_blend):
 @pytest.mark.parametrize("n_keys", [3, 50, 4096])
 def test_segment_combine_plain_matches_jax(is_blend, n_keys):
     keys, w, rgb = _stream(42, n_keys)
-    want_k, want_v = _jax_combined(keys, w, rgb, is_blend)
+    want_k, want_v = _jax_combined(f"segment_{n_keys}_{_tag(is_blend)}", keys, w,
+                                   rgb, is_blend)
     sk, sch = _port_sorted(keys, w, rgb)
     tk, *tv = segment_combine_ref(sk, *sch, is_blend)
     # compact by the tail marks (order-preserving)
@@ -81,7 +130,8 @@ def test_segment_combine_plain_matches_jax(is_blend, n_keys):
 @pytest.mark.parametrize("is_blend", [True, False], ids=["blend", "max"])
 def test_combine_sorted_matches_jax(is_blend):
     keys, w, rgb = _stream(7, 600, p=8192)
-    want_k, want_v = _jax_combined(keys, w, rgb, is_blend)
+    want_k, want_v = _jax_combined(f"combine_sorted_{_tag(is_blend)}", keys, w, rgb,
+                                   is_blend)
     sk, sch = _port_sorted(keys, w, rgb)
     ok, och, oc = tcomb.combine_sorted(sk, sch, is_blend)
     n = int(oc)
@@ -93,14 +143,8 @@ def test_combine_sorted_matches_jax(is_blend):
 
 
 def test_max_tie_keeps_earliest():
-    keys = np.full(64, INV, np.int32)
-    w = np.zeros(64, np.float32)
-    rgb = np.zeros((64, 3), np.float32)
-    keys[3] = keys[9] = 7
-    w[3] = w[9] = 0.5
-    rgb[3] = [1.0, 0.0, 0.0]
-    rgb[9] = [0.0, 1.0, 0.0]
-    want_k, want_v = _jax_combined(keys, w, rgb, False)
+    keys, w, rgb = _tie_stream()
+    want_k, want_v = _jax_combined("tie", keys, w, rgb, False)
     sk, sch = _port_sorted(keys, w, rgb)
     tk, *tv = segment_combine_ref(sk, *sch, False)
     live = tk != INV
@@ -111,11 +155,9 @@ def test_max_tie_keeps_earliest():
 
 @pytest.mark.parametrize("is_blend", [True, False], ids=["blend", "max"])
 def test_single_run_spanning_everything(is_blend):
-    p = 4096
-    keys = np.zeros(p, np.int32)
-    w = np.full(p, 0.25, np.float32)
-    rgb = np.tile(np.asarray([[0.2, 0.4, 0.8]], np.float32), (p, 1))
-    want_k, want_v = _jax_combined(keys, w, rgb, is_blend)
+    keys, w, rgb = _single_run()
+    want_k, want_v = _jax_combined(f"single_run_{_tag(is_blend)}", keys, w, rgb,
+                                   is_blend)
     sk, sch = _port_sorted(keys, w, rgb)
     tk, *tv = segment_combine(sk, *sch, is_blend)
     assert int((tk != INV).sum()) == 1 and int(tk[-1]) == 0
@@ -130,16 +172,8 @@ def test_segment_combine_empty_stream():
 
 
 def test_finalize_and_pack_argb_match_jax():
-    rng = np.random.default_rng(9)
-    p = 2000
-    w = rng.random(p, dtype=np.float32) * 3
-    w[:50] = 0.0
-    rgb = rng.random((p, 3), dtype=np.float32)
-    # exact quantization boundaries (Kd 0.1 -> byte 26 needs an exact divide)
-    rgb[50:60] = 0.1
-    rgb[60:70] = 0.5 / 255.0
-    jchans = jcomb.premultiply(jnp.asarray(w), jnp.asarray(rgb))
-    want = np.asarray(jcomb.pack_argb(jcomb.finalize_colors(jchans)))
+    w, rgb = finalize_inputs()
+    want = reference("combine", "finalize_pack_argb", w, rgb)["argb"]
     tchans = tcomb.premultiply(torch.from_numpy(w), torch.from_numpy(rgb))
     got = tcomb.pack_argb(tcomb.finalize_colors(tchans))
     assert got.dtype == torch.uint32
@@ -158,6 +192,9 @@ def test_sort_channels_is_stable():
     np.testing.assert_array_equal(sk.numpy(), np.sort(keys))
 
 
+COMBINE_PACK_CASES = ["keys3", "keys50", "keys4096", "one_run", "all_invalid"]
+
+
 def _combine_pack_case(case):
     """(keys, w, rgb) of `_stream`'s shape (p = 4096) for each case."""
     if case.startswith("keys"):
@@ -170,13 +207,13 @@ def _combine_pack_case(case):
 
 
 @pytest.mark.parametrize("is_blend", [True, False], ids=["blend", "max"])
-@pytest.mark.parametrize("case", ["keys3", "keys50", "keys4096", "one_run",
-                                  "all_invalid"])
+@pytest.mark.parametrize("case", COMBINE_PACK_CASES)
 def test_combine_pack_plain_matches_jax(is_blend, case):
     # combine_pack on the CPU (its plain version) against the oracle the
     # Pallas composition `_combine_sorted_kernel` is held to
     keys, w, rgb = _combine_pack_case(case)
-    want_k, want_v = _jax_combined(keys, w, rgb, is_blend)
+    want_k, want_v = _jax_combined(f"combine_pack_{case}_{_tag(is_blend)}", keys, w,
+                                   rgb, is_blend)
     sk, sch = _port_sorted(keys, w, rgb)
     ok, och, oc = combine_pack(sk, sch, is_blend)
     n = int(oc)

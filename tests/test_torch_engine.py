@@ -10,19 +10,21 @@ import subprocess
 import sys
 from pathlib import Path
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from conftest import expected_unit_cube_voxels
-from obj2voxel_tpu import constants as C
-from obj2voxel_tpu import engine as jeng
+from conftest import (
+    THREE_PLANES_QUADS, THREE_PLANES_VERTICES, UNIT_CUBE_QUADS, UNIT_CUBE_VERTICES,
+    expected_unit_cube_voxels, quads_to_tris,
+)
+from jax_reference import reference, voxel_dict
 import obj2voxel_tpu_torch as pt
+from obj2voxel_tpu_torch import constants as C
 
 torch.set_num_threads(1)
 
-#: pass-budget cap of the module-scoped JAX references
+#: pass-budget cap of the JAX references
 TILE = 1 << 14
 
 
@@ -36,14 +38,11 @@ def _voxels(gen):
     return out
 
 
-def _jax(verts, **kw):
-    """The JAX package's output, run op by op: jitted XLA CPU programs take
-    minutes to compile here and contract multiply-adds into FMAs, which the
-    port does not."""
-    soup = jeng.TriangleSoup.from_vertices(verts) if not isinstance(
-        verts, jeng.TriangleSoup) else verts
-    with jax.disable_jit():
-        return _voxels(jeng.voxelize_soup(soup, **kw))
+def _jax(case, *arrays, **kw):
+    """The JAX package's `voxelize_soup` on these inputs, run op by op
+    (jitted XLA CPU programs contract multiply-adds into FMAs, which the
+    port does not), as tests/fixtures/jax_engine.npz holds it."""
+    return voxel_dict(reference("engine", case, *arrays, **kw))
 
 
 def _port(soup, **kw):
@@ -77,63 +76,50 @@ def _random_soup(cls, n=300, seed=0):
     )
 
 
-@pytest.fixture(scope="module")
-def jax_closed_forms(cube_tris_m, planes_tris_m):
-    """The JAX package's outputs for the closed-form fixtures, once."""
-    return {
-        ("cube", 32): _jax(cube_tris_m, resolution=32, pair_tile=TILE),
-        ("cube", 64): _jax(cube_tris_m, resolution=64, pair_tile=TILE),
-        ("planes", 32): _jax(planes_tris_m, resolution=32, pair_tile=TILE),
-        ("planes", 128): _jax(planes_tris_m, resolution=128, pair_tile=TILE),
-    }
+def soup_arrays(soup):
+    """A soup's five arrays, in the constructor's order."""
+    return soup.verts, soup.uvs, soup.types, soup.rgb, soup.tex
+
+
+def shape_tris(shape):
+    """The closed-form fixtures' triangles."""
+    if shape == "cube":
+        return quads_to_tris(UNIT_CUBE_VERTICES, UNIT_CUBE_QUADS)
+    return quads_to_tris(THREE_PLANES_VERTICES, THREE_PLANES_QUADS)
 
 
 @pytest.fixture(scope="module")
 def cube_tris_m():
-    from conftest import UNIT_CUBE_QUADS, UNIT_CUBE_VERTICES, quads_to_tris
-
-    return quads_to_tris(UNIT_CUBE_VERTICES, UNIT_CUBE_QUADS)
+    return shape_tris("cube")
 
 
-@pytest.fixture(scope="module")
-def planes_tris_m():
-    from conftest import THREE_PLANES_QUADS, THREE_PLANES_VERTICES, quads_to_tris
+CLOSED_FORMS = [
+    ("cube", 32, expected_unit_cube_voxels(32)),
+    ("cube", 64, expected_unit_cube_voxels(64)),
+    ("planes", 32, 3 * 32 * 32),
+    # x lands exactly on 64.0 at r = 128: the boundary-aligned plane
+    ("planes", 128, 3 * 128 * 128),
+]
 
-    return quads_to_tris(THREE_PLANES_VERTICES, THREE_PLANES_QUADS)
 
-
-@pytest.mark.parametrize(
-    "shape,r,want",
-    [
-        ("cube", 32, expected_unit_cube_voxels(32)),
-        ("cube", 64, expected_unit_cube_voxels(64)),
-        ("planes", 32, 3 * 32 * 32),
-        # x lands exactly on 64.0 at r = 128: the boundary-aligned plane
-        ("planes", 128, 3 * 128 * 128),
-    ],
-)
-def test_closed_forms_match_jax(jax_closed_forms, cube_tris_m, planes_tris_m,
-                                shape, r, want):
-    tris = cube_tris_m if shape == "cube" else planes_tris_m
+@pytest.mark.parametrize("shape,r,want", CLOSED_FORMS)
+def test_closed_forms_match_jax(shape, r, want):
+    tris = shape_tris(shape)
     got = _port(tris, resolution=r, pair_tile=TILE)
-    ref = jax_closed_forms[(shape, r)]
+    ref = _jax(f"{shape}_{r}", tris, resolution=r, pair_tile=TILE)
     assert len(got) == len(ref) == want
     assert got == ref  # materialless: white, byte for byte
 
 
-@pytest.fixture(scope="module")
-def jax_random_soup():
-    soup = _random_soup(jeng.TriangleSoup)
-    return {
-        s: _jax(soup, resolution=64, pair_tile=TILE, strategy=s, bounds=BOUNDS)
-        for s in (C.MAX_STRATEGY, C.BLEND_STRATEGY)
-    }
+def _jax_random_soup(strategy):
+    return _jax(f"random_{strategy}", *soup_arrays(_random_soup(pt.TriangleSoup)),
+                *BOUNDS, resolution=64, pair_tile=TILE, strategy=strategy)
 
 
 @pytest.mark.parametrize("strategy", [C.MAX_STRATEGY, C.BLEND_STRATEGY],
                          ids=["max", "blend"])
-def test_random_soup_matches_jax(jax_random_soup, strategy):
-    ref = jax_random_soup[strategy]
+def test_random_soup_matches_jax(strategy):
+    ref = _jax_random_soup(strategy)
     got = _port(_random_soup(pt.TriangleSoup), resolution=64, pair_tile=TILE,
                 strategy=strategy, bounds=BOUNDS)
     assert set(got) == set(ref)
@@ -143,10 +129,10 @@ def test_random_soup_matches_jax(jax_random_soup, strategy):
 
 @pytest.mark.parametrize("strategy", [C.MAX_STRATEGY, C.BLEND_STRATEGY],
                          ids=["max", "blend"])
-def test_multislab_multipass_matches_jax(jax_random_soup, strategy):
+def test_multislab_multipass_matches_jax(strategy):
     # tiny budgets: several slabs, several passes per slab; pass
     # partitioning must not change the output
-    ref = jax_random_soup[strategy]
+    ref = _jax_random_soup(strategy)
     got = _port(_random_soup(pt.TriangleSoup), resolution=64,
                 pair_tile=1 << 12, max_pass_budget=1 << 12, strategy=strategy,
                 bounds=BOUNDS)

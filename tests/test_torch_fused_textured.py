@@ -19,6 +19,9 @@
 - `engine._textured_pass` against the route it replaced (`pass_pairs` ->
   the plain K4 -> texture sampling -> K3), byte for byte.
 
+The JAX outputs are those of tests/fixtures/jax_fused_textured.npz
+(scripts/jax_test_references.py).
+
 The tables hold triangles of mixed sizes with a quarter of their
 coordinates on voxel planes, triangles in or within 1e-5 of a voxel face,
 and a triangle in the plane x = 6, which belongs to the voxel above it.
@@ -26,17 +29,13 @@ and a triangle in the plane x = 6, which belongs to the voxel above it.
 
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from obj2voxel_tpu import constants as C
-from obj2voxel_tpu import engine as jeng
-from obj2voxel_tpu.ops import clip as jclip
-from obj2voxel_tpu.ops.pass_fused import fused_pass_pallas
+from jax_reference import reference
 import obj2voxel_tpu_torch as pt
+from obj2voxel_tpu_torch import constants as C
 from obj2voxel_tpu_torch import engine
 from obj2voxel_tpu_torch.ops import _cuda
 from obj2voxel_tpu_torch.ops.clip_pallas import clip_pairs_ref, pass_pairs
@@ -46,6 +45,7 @@ from obj2voxel_tpu_torch.ops.pack_pallas import pack_exact
 from obj2voxel_tpu_torch.ops.pass_fused import (
     fused_pass, fused_pass_ref, triangle_area,
 )
+from obj2voxel_tpu_torch.soup import build_tri_table
 
 torch.set_num_threads(1)
 
@@ -80,7 +80,7 @@ def _table(seed, n=1100, res=RES):
     uvs = rng.uniform(-2, 3, size=(n, 3, 2)).astype(np.float32)
     types = np.where(rng.random(n) < 0.8, C.TRI_TEXTURED, C.TRI_UNTEXTURED)
     tex = np.where(types == C.TRI_TEXTURED, rng.integers(0, 3, n), -1)
-    return jeng.build_tri_table(verts, uvs, types.astype(np.int32),
+    return build_tri_table(verts, uvs, types.astype(np.int32),
                                 rng.random((n, 3), dtype=np.float32),
                                 tex.astype(np.int32))
 
@@ -144,9 +144,10 @@ def test_plain_matches_pallas_interpret(small_table):
     # stable key sort would keep; FMA contraction moves slivers below that
     # across 0
     table = small_table
-    key, w, u, v, zero = (np.asarray(x) for x in fused_pass_pallas(
-        jnp.asarray(table[R0:R0 + N_ROWS].T), 0, SMALL[0], SMALL[2], SMALL[1],
-        N_ROWS, expand=EXPAND, budget=BUDGET, textured=True, interpret=True))
+    rows = table[R0:R0 + N_ROWS]
+    ref = reference("fused_textured", "pallas_interpret", rows, grid=SMALL,
+                    n_rows=N_ROWS, expand=EXPAND, budget=BUDGET)
+    key, w, u, v, zero = (ref[k] for k in ("key", "w", "u", "v", "zero"))
     np.testing.assert_array_equal(zero, 0.0)
     live = key != INV
     row = R0 + np.arange(BUDGET) // EXPAND
@@ -174,6 +175,18 @@ def test_ref_weights_keeps_clipped_pairs(table):
     assert (w > 0).all() and (w <= rw * (1 + 1e-5)).all()
 
 
+def clip_inputs(table):
+    """The op-by-op comparison's live slots: (row, voxel) and the clip's
+    channel-major inputs (tri, vox4)."""
+    rows = table[R0:R0 + N_ROWS]
+    row, vox, inside = _slot_voxels(rows, Z_LO, Z_HI, RES, EXPAND)
+    row, vox = row[inside], vox[inside]
+    tri = np.ascontiguousarray(rows[row, 0:16].T)
+    vox4 = np.zeros((4, row.size), np.float32)
+    vox4[:3] = vox.T
+    return row, vox, tri, vox4
+
+
 def _slot_voxels(rows, z_lo, z_hi, stride, expand):
     """Every slot's (row, voxel, in its AABB) by exact integer arithmetic:
     the planner's AABB, rank = slot & (expand - 1)."""
@@ -193,25 +206,13 @@ def _slot_voxels(rows, z_lo, z_hi, stride, expand):
 @pytest.mark.parametrize("ref_weights", [False, True], ids=["clipped", "ref_weights"])
 def test_plain_matches_op_by_op_clip_exactly(table, ref_weights):
     r0, n_rows = R0, N_ROWS
-    rows = table[r0:r0 + n_rows]
-    row, vox, inside = _slot_voxels(rows, Z_LO, Z_HI, RES, EXPAND)
-    row, vox = row[inside], vox[inside]
-    tri = np.ascontiguousarray(rows[row, 0:16].T)
-    vox4 = np.zeros((4, row.size), np.float32)
-    vox4[:3] = vox.T
-    with jax.disable_jit():
-        w, u, v = (np.asarray(x)[0] for x in jclip.clip_channels(
-            jnp.asarray(tri), jnp.asarray(vox4)))
-        if ref_weights:
-            # obj2voxel_tpu/ops/pass_fused.py:191-197, op by op
-            e = jnp.asarray(tri)
-            e1x, e1y, e1z = e[3] - e[0], e[4] - e[1], e[5] - e[2]
-            e2x, e2y, e2z = e[6] - e[0], e[7] - e[1], e[8] - e[2]
-            cx = e1y * e2z - e1z * e2y
-            cy = e1z * e2x - e1x * e2z
-            cz = e1x * e2y - e1y * e2x
-            area = np.asarray(0.5 * jnp.sqrt(cx * cx + cy * cy + cz * cz))
-            w = np.where(w > 0, area, np.float32(0))
+    row, vox, tri, vox4 = clip_inputs(table)
+    # the JAX clip, and with ref_weights the triangle area of
+    # obj2voxel_tpu/ops/pass_fused.py:191-197, op by op
+    ref = reference("fused_textured", "clip_channels", tri, vox4)
+    w, u, v = ref["w"], ref["u"], ref["v"]
+    if ref_weights:
+        w = np.where(w > 0, ref["area"], np.float32(0))
     live = w > 0
     key = ((vox[:, 2] - Z_LO) * RES * RES + vox[:, 1] * RES + vox[:, 0])
     # both in slot order
@@ -249,7 +250,7 @@ def _giant():
     verts = np.array([[[0.5, 0.5, 0.5], [63.5, 0.5, 2.5], [0.5, 63.5, 2.5]]],
                      np.float32)
     uvs = np.array([[[-0.3, 0.1], [2.2, -0.4], [0.4, 1.9]]], np.float32)
-    return jeng.build_tri_table(verts, uvs, np.full(1, C.TRI_TEXTURED, np.int32),
+    return build_tri_table(verts, uvs, np.full(1, C.TRI_TEXTURED, np.int32),
                                 np.full((1, 3), 0.5, np.float32),
                                 np.zeros(1, np.int32))
 

@@ -4,22 +4,20 @@ Morton codes (`ops/morton.py`), the per-pair clip (`ops/clip.py`
 `clip_triangles_to_voxels_pallas`) and `ops/color.sample_pair_colors`.
 
 Every comparison is exact: the clip's inputs are test_torch_clip.py's pairs
-(a quarter of the vertices on voxel planes), and the JAX clip runs op by op,
-with no multiply-add contraction, like the port.
+(a quarter of the vertices on voxel planes), and the JAX clip ran op by op,
+with no multiply-add contraction, like the port.  The JAX clip's and color
+sampler's outputs are those of tests/fixtures/jax_helpers.npz
+(scripts/jax_test_references.py); the Morton codes run live.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from obj2voxel_tpu import constants as C
-from obj2voxel_tpu.ops import clip as jclip
-from obj2voxel_tpu.ops import color as jcolor
+from jax_reference import reference
 from obj2voxel_tpu.ops import morton as jmorton
-from obj2voxel_tpu.ops.color import TexturePool as JaxPool
 import obj2voxel_tpu_torch as pt
+from obj2voxel_tpu_torch import constants as C
 from obj2voxel_tpu_torch.ops import clip as tclip
 from obj2voxel_tpu_torch.ops import clip_pallas as tclip_pallas
 from obj2voxel_tpu_torch.ops import color as tcolor
@@ -71,9 +69,8 @@ def _pairs(seed):
 @pytest.mark.parametrize("helper", ["clip", "clip_pallas"])
 def test_clip_triangles_to_voxels_matches_jax(seed, helper):
     verts, uvs, pos = _pairs(seed)
-    with jax.disable_jit():
-        jw, juv = jclip.clip_triangles_to_voxels(
-            jnp.asarray(verts), jnp.asarray(uvs), jnp.asarray(pos))
+    ref = reference("helpers", f"clip_{seed}", verts, uvs, pos)
+    jw, juv = ref["w"], ref["uv"]
     args = [torch.from_numpy(a) for a in (verts, uvs, pos)]
     fn = (tclip.clip_triangles_to_voxels if helper == "clip"
           else tclip_pallas.clip_triangles_to_voxels_pallas)
@@ -83,6 +80,13 @@ def test_clip_triangles_to_voxels_matches_jax(seed, helper):
     assert (np.asarray(jw) > 0).sum() > 100
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
     np.testing.assert_array_equal(tuv.numpy(), np.asarray(juv))
+
+
+def color_arrays(seed):
+    """The color case's input arrays: each texture's pixels, then uv,
+    types, rgb and tex."""
+    textures, images, uv, types, rgb, tex = _color_inputs(seed)
+    return [*images, uv, types, rgb, tex]
 
 
 def _color_inputs(seed, n=5000):
@@ -103,15 +107,11 @@ def _color_inputs(seed, n=5000):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_sample_pair_colors_matches_jax(seed):
     textures, images, uv, types, rgb, tex = _color_inputs(seed)
-    jpool, tpool = JaxPool(), pt.TexturePool()
+    tpool = pt.TexturePool()
     for img, (_, _, wrap) in zip(images, textures):
-        jpool.add(img, wrap)
         tpool.add(img, wrap)
-    pixels, meta = jpool.device_arrays()
-    with jax.disable_jit():
-        want = np.asarray(jcolor.sample_pair_colors(
-            jnp.asarray(uv), jnp.asarray(types), jnp.asarray(rgb), jnp.asarray(tex),
-            jnp.asarray(pixels), jnp.asarray(meta)))
+    want = reference("helpers", f"colors_{seed}", *color_arrays(seed),
+                     wraps=[int(t[2]) for t in textures])["rgb"]
     got = tcolor.sample_pair_colors(
         torch.from_numpy(uv), torch.from_numpy(types).to(torch.int64),
         torch.from_numpy(rgb), torch.from_numpy(tex).to(torch.int64),

@@ -5,18 +5,18 @@ Tolerances: the merge is a permutation, so keys and channels are equal bit
 for bit to the JAX kernel (interpret mode), to the JAX stable-sort oracle
 and to `torch.sort(stable=True)`; through the engine the voxel set and the
 bytes equal the JAX package's and the port's default route (the cube is
-materialless, so MAX and BLEND bytes are all white).
+materialless, so MAX and BLEND bytes are all white).  The JAX kernel's and
+the JAX package's cube outputs are those of tests/fixtures/jax_merge_runs.npz
+(scripts/jax_test_references.py); the stable-sort oracle runs live.
 """
 
 import ctypes
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from obj2voxel_tpu import engine as jeng
+from jax_reference import reference, voxel_dict
 from obj2voxel_tpu.ops import merge_pallas as jmerge
 import obj2voxel_tpu_torch as pt
 from obj2voxel_tpu_torch import engine
@@ -52,33 +52,29 @@ def _assert_stable_sort(keys, chans, got_k, got_ch):
         np.testing.assert_array_equal(g, c[order])
 
 
-def test_merge_matches_jax_kernel():
-    """The port against merge_runs_pallas(interpret=True): S = 5 runs,
-    n_block 1024; the JAX buffer pads each run to the block with INVALID
-    rows, so its live rows are compared."""
+def kernel_case():
+    """(keys, chans, counts, n_block) of the JAX kernel comparison: S = 5
+    runs, n_block 1024."""
     rng = np.random.RandomState(5)
     n_block = 1024
     counts = [int(rng.randint(1, 4 * n_block)) for _ in range(5)]
     keys, chans = _runs(rng, counts, key_hi=50)
-    aligned, levels, spad = jmerge.plan_runs(counts, n_block)
-    p = aligned[-1]
-    pb = p + (n_block // 128 + jmerge._WIN_PAD) * 128
-    jk = np.full(pb, INV, np.int32)
-    jc = [np.zeros(pb, np.float32) for _ in range(4)]
-    dense, _ = plan_runs(counts)
-    for i, c in enumerate(counts):
-        jk[aligned[i]:aligned[i] + c] = keys[dense[i]:dense[i + 1]]
-        for a, b in zip(jc, chans):
-            a[aligned[i]:aligned[i] + c] = b[dense[i]:dense[i + 1]]
-    aoff = np.asarray(aligned + [p] * (spad + 1 - len(aligned)), np.int32)
-    ok, oc = jmerge.merge_runs_pallas(
-        jnp.asarray(jk), tuple(jnp.asarray(c) for c in jc), jnp.asarray(aoff),
-        p=p, n_block=n_block, levels=levels, spad=spad, interpret=True)
+    return keys, chans, counts, n_block
+
+
+def test_merge_matches_jax_kernel():
+    """The port against merge_runs_pallas(interpret=True); the JAX buffer
+    pads each run to the block with INVALID rows, so its live rows are
+    compared."""
+    keys, chans, counts, n_block = kernel_case()
+    ref = reference("merge_runs", "kernel", keys, *chans, counts=counts,
+                    n_block=n_block)
+    ok, oc = ref["keys"], [ref[f"chan{j}"] for j in range(4)]
     n = keys.size
     got_k, got_ch = _port_merge(keys, chans, counts)
-    np.testing.assert_array_equal(got_k, np.asarray(ok)[:n])
+    np.testing.assert_array_equal(got_k, ok[:n])
     for g, c in zip(got_ch, oc):
-        np.testing.assert_array_equal(g, np.asarray(c)[:n])
+        np.testing.assert_array_equal(g, c[:n])
 
 
 # the cases of tests/test_merge_pallas.py, without the TPU layout
@@ -280,6 +276,10 @@ def cube_m():
     return quads_to_tris(UNIT_CUBE_VERTICES, UNIT_CUBE_QUADS)
 
 
+#: the JAX cube's options
+JAX_CUBE = dict(resolution=128, pair_tile=1 << 17)
+
+
 @pytest.fixture(scope="module")
 def jax_cube(cube_m):
     """The JAX package's cube at r = 128, run op by op with its default
@@ -287,10 +287,7 @@ def jax_cube(cube_m):
     O2V_MERGE_RUNS=1 merge (that route, run op by op, took 82 s alone).  The
     cube is materialless: every voxel is white, so the pass budget (2^17
     here, the quicker reference) cannot change the output."""
-    with jax.disable_jit():
-        return _voxels(jeng.voxelize_soup(
-            jeng.TriangleSoup.from_vertices(cube_m), resolution=128,
-            pair_tile=1 << 17))
+    return voxel_dict(reference("merge_runs", "cube", cube_m, **JAX_CUBE))
 
 
 @pytest.mark.parametrize("strategy", [pt.MAX_STRATEGY, pt.BLEND_STRATEGY],

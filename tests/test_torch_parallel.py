@@ -5,7 +5,9 @@ devices: a device listed k times runs k windows in turn, and "cpu" beside
 Parity: against the port's single-device `voxelize_soup` with the same
 options (the voxel set exactly, MAX colors byte for byte, BLEND within
 1 LSB), and against the JAX package's `voxelize_sharded(n_devices=3)` on
-the unit cube (exactly); `_device_windows` equal to the JAX function's.
+the unit cube (exactly; tests/fixtures/jax_parallel.npz holds its output,
+scripts/jax_test_references.py); `_device_windows` equal to the JAX
+function's.
 """
 
 import numpy as np
@@ -15,11 +17,11 @@ import torch
 from conftest import (
     UNIT_CUBE_QUADS, UNIT_CUBE_VERTICES, expected_unit_cube_voxels, quads_to_tris,
 )
-from obj2voxel_tpu import constants as C
-from obj2voxel_tpu.engine import TriangleSoup as JaxSoup
+from jax_reference import reference, voxel_dict
 from obj2voxel_tpu.parallel import mesh as jmesh
 import obj2voxel_tpu_torch as pt
 from obj2voxel_tpu_torch import api as tapi
+from obj2voxel_tpu_torch import constants as C
 from obj2voxel_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(1)
@@ -112,17 +114,19 @@ def test_two_worker_threads_match_one_device(single):
     assert got == single["random_max"]
 
 
+#: the sharded cube's options: r = 8 kept the jitted JAX reference's
+#: compiles to ~2 minutes
+SHARDED = dict(resolution=8, tile_size=1 << 12, pair_tile=1 << 12)
+
+
 def test_cube_matches_jax_voxelize_sharded():
-    # the JAX reference jitted, as tests/test_parallel.py runs it (op by op,
-    # its shard_map programs do not finish in minutes); r = 8 keeps its
-    # compiles to ~2 minutes
-    kw = dict(resolution=8, tile_size=1 << 12, pair_tile=1 << 12)
-    jxyz, jargb = jmesh.voxelize_sharded(JaxSoup.from_vertices(CUBE), n_devices=3,
-                                         **kw)
+    # the JAX reference ran jitted, as tests/test_parallel.py runs it (op by
+    # op, its shard_map programs do not finish in minutes)
     xyz, argb = tmesh.voxelize_sharded(pt.TriangleSoup.from_vertices(CUBE),
-                                       devices=["cpu"] * 3, **kw)
+                                       devices=["cpu"] * 3, **SHARDED)
+    ref = reference("parallel", "cube_sharded", CUBE, n_devices=3, **SHARDED)
     assert xyz.shape[0] == expected_unit_cube_voxels(8)
-    assert _voxels([(xyz, argb)]) == _voxels([(jxyz, jargb)])
+    assert _voxels([(xyz, argb)]) == voxel_dict(ref)
 
 
 def test_worker_failure_reaches_the_caller(monkeypatch):

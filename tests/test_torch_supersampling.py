@@ -2,26 +2,26 @@
 
 Tolerances (PARITY.md "Fidelity scope"): the voxel set exactly, MAX colors
 byte for byte, BLEND colors within 1 LSB per channel; `downscale_keys` and
-the two-cell oracle exactly.  The JAX reference runs op by op
-(`jax.disable_jit()`), every pass at 2^14 slots (one shape to compile).
+the two-cell oracle exactly.  The JAX reference ran op by op
+(`jax.disable_jit()`), every pass at 2^14 slots (one shape to compile);
+tests/fixtures/jax_supersampling.npz holds its outputs
+(scripts/jax_test_references.py), and `downscale_keys` runs live.
 
 The tie rule (ROADMAP Queue 3): a supersampled MAX tie goes to the earlier
 pass, then the earlier fine key, then the earlier slot, as the JAX package
 gives on the CPU.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from conftest import UNIT_CUBE_QUADS, UNIT_CUBE_VERTICES, quads_to_tris
-from obj2voxel_tpu import constants as C
-from obj2voxel_tpu import engine as jeng
+from jax_reference import reference, voxel_dict
 from obj2voxel_tpu.ops import combine as jcombine
-from obj2voxel_tpu.ops.color import TexturePool as JaxPool
 import obj2voxel_tpu_torch as pt
+from obj2voxel_tpu_torch import constants as C
 from obj2voxel_tpu_torch import cli as pcli
 from obj2voxel_tpu_torch.engine import _merge_keys
 from obj2voxel_tpu_torch.ops.combine import (
@@ -56,9 +56,14 @@ def _assert_parity(port, ref, strategy):
     assert _max_lsb(port, ref) <= (1 if strategy == C.BLEND_STRATEGY else 0)
 
 
-def _jax(soup, pool=None, **kw):
-    with jax.disable_jit():
-        return _voxels(jeng.voxelize_soup(soup, pool, **kw))
+def _jax(case, *arrays, **kw):
+    """The JAX package's output on these inputs, as
+    tests/fixtures/jax_supersampling.npz holds it."""
+    return voxel_dict(reference("supersampling", case, *arrays, **kw))
+
+
+def soup_arrays(soup):
+    return soup.verts, soup.uvs, soup.types, soup.rgb, soup.tex
 
 
 def _port(soup, pool=None, **kw):
@@ -107,9 +112,12 @@ def test_two_cell_oracle(is_blend):
     np.testing.assert_allclose(rgb_out[0], want_a[1:] / want_a[0], rtol=1e-6)
 
 
+#: the cube case's options
+CUBE_KW = dict(resolution=8, supersampling=2, pair_tile=TILE)
+
+
 def test_cube_matches_jax_and_halving():
-    ref = _jax(jeng.TriangleSoup.from_vertices(CUBE), resolution=8,
-               supersampling=2, pair_tile=TILE)
+    ref = _jax("cube", CUBE, **CUBE_KW)
     soup = pt.TriangleSoup.from_vertices(CUBE)
     got = _port(soup, resolution=8, supersampling=2, pair_tile=TILE)
     assert got == ref
@@ -139,13 +147,15 @@ def _one_voxel_soup(cls, n, r, seed):
                rng.random((n, 3), dtype=np.float32), np.full(n, -1, np.int32))
 
 
+#: the seeded soup's options: one slab of one pass at 2^14 slots
+SEEDED_KW = dict(resolution=32, supersampling=2, pair_tile=TILE)
+
+
 @pytest.fixture(scope="module")
 def jax_seeded():
-    """The JAX package's seeded soup at r = 32, supersampling 2: one slab of
-    one pass at 2^14 slots."""
-    soup = _one_voxel_soup(jeng.TriangleSoup, 3000, 64, seed=1)
-    return {s: _jax(soup, resolution=32, supersampling=2, pair_tile=TILE,
-                    strategy=s, bounds=BOUNDS)
+    """The JAX package's seeded soup at r = 32, supersampling 2."""
+    arrays = soup_arrays(_one_voxel_soup(pt.TriangleSoup, 3000, 64, seed=1))
+    return {s: _jax(f"seeded_{s}", *arrays, *BOUNDS, strategy=s, **SEEDED_KW)
             for s in (C.MAX_STRATEGY, C.BLEND_STRATEGY)}
 
 
@@ -181,10 +191,11 @@ def test_seeded_soup_matches_jax(jax_seeded, merge_log, strategy, budget):
         assert max(merge_log) > 1
 
 
-def _tie_grid(pkg, budget):
+def tie_grid_inputs(budget):
     """ROADMAP Queue 3's fixture in voxel space (stride 8, MAX): a blue
     triangle first in the stream and a red one shifted by -1 in x clip to
-    equal areas in fine voxels x = 1 and x = 0 of coarse voxel (0, 0, 0)."""
+    equal areas in fine voxels x = 1 and x = 0 of coarse voxel (0, 0, 0).
+    The five arrays and `voxelize_grid`'s options."""
     blue = np.array([[1.25, 0.25, 0.5], [1.75, 0.25, 0.5], [1.25, 0.75, 0.5]],
                     np.float32)
     arrays = (np.stack([blue, blue - np.float32([1, 0, 0])]),
@@ -192,12 +203,12 @@ def _tie_grid(pkg, budget):
               np.array([[0, 0, 1], [1, 0, 0]], np.float32), np.full(2, -1, np.int32))
     kw = dict(stride=8, z_extent=8, is_blend=False, do_down=True,
               pair_tile=budget, max_pass_budget=budget)
-    if pkg is pt:
-        return _voxels(pt.voxelize_grid(*arrays, device="cpu", **kw))
-    pixels, meta = JaxPool().device_arrays()
-    with jax.disable_jit():
-        return _voxels(jeng.voxelize_grid(*arrays, jnp.asarray(pixels),
-                                          jnp.asarray(meta), **kw))
+    return arrays, kw
+
+
+def _tie_grid(budget):
+    arrays, kw = tie_grid_inputs(budget)
+    return _voxels(pt.voxelize_grid(*arrays, device="cpu", **kw))
 
 
 @pytest.mark.parametrize("budget,color", [(TILE, 0xFFFF0000), (1, 0xFF0000FF)],
@@ -205,19 +216,30 @@ def _tie_grid(pkg, budget):
 def test_queue3_tie_follows_the_rule(budget, color):
     # one pass: the earlier fine key (x = 0, red); one pass per triangle:
     # the earlier pass (blue)
-    got = _tie_grid(pt, budget)
+    got = _tie_grid(budget)
     assert got == {(0, 0, 0): color}
-    assert got == _tie_grid(jeng, budget)
+    arrays, kw = tie_grid_inputs(budget)
+    assert got == _jax(f"tie_{budget}", *arrays, **kw)
+
+
+#: the textured soup's options (and its unit-cube bounds)
+TEXTURED_KW = dict(resolution=8, supersampling=2, pair_tile=TILE,
+                   strategy=C.MAX_STRATEGY)
+
+
+def textured_inputs():
+    from test_torch_textures import _random_textured
+
+    return _random_textured(40, 16, 1.4, seed=2)
 
 
 def test_textured_soup_matches_jax():
-    from test_torch_textures import _pool, _random_textured, _soup
+    from test_torch_textures import _pool, _soup, texture_arrays
 
-    arrays, textures = _random_textured(40, 16, 1.4, seed=2)
-    kw = dict(resolution=8, supersampling=2, bounds=BOUNDS, pair_tile=TILE,
-              strategy=C.MAX_STRATEGY)
-    got = _port(_soup(pt.TriangleSoup, arrays), _pool(pt.TexturePool, textures), **kw)
-    ref = _jax(_soup(jeng.TriangleSoup, arrays), _pool(JaxPool, textures), **kw)
+    arrays, textures = textured_inputs()
+    got = _port(_soup(pt.TriangleSoup, arrays), _pool(pt.TexturePool, textures),
+                bounds=BOUNDS, **TEXTURED_KW)
+    ref = _jax("textured", *arrays, *BOUNDS, *texture_arrays(textures), **TEXTURED_KW)
     _assert_parity(got, ref, C.MAX_STRATEGY)
     assert len(got) > 50 and len(set(got.values())) > 10
 

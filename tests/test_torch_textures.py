@@ -3,20 +3,19 @@ obj2voxel_tpu.engine.voxelize_soup on the same inputs.
 
 Parity contract (PARITY.md "Fidelity scope"): the voxel set exactly, MAX
 colors byte for byte, BLEND colors within 1 LSB per channel.  The JAX
-reference runs op by op (`jax.disable_jit()`): jitted XLA CPU programs take
+reference ran op by op (`jax.disable_jit()`: jitted XLA CPU programs take
 minutes to compile here and contract multiply-adds into FMAs, which the
-port does not.
+port does not); tests/fixtures/jax_textures.npz holds its outputs
+(scripts/jax_test_references.py).
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from obj2voxel_tpu import constants as C
-from obj2voxel_tpu import engine as jeng
-from obj2voxel_tpu.ops.color import TexturePool as JaxPool
+from jax_reference import reference, voxel_dict
 import obj2voxel_tpu_torch as pt
+from obj2voxel_tpu_torch import constants as C
 
 torch.set_num_threads(1)
 
@@ -43,14 +42,20 @@ def _pool(cls, textures):
     return pool
 
 
-def _both(arrays, textures, **kw):
-    """(port, reference) voxel dicts of one soup and texture list."""
+def texture_arrays(textures):
+    """A texture list's images and its wrap modes, as arrays."""
+    return [img for img, _ in textures] + [np.array([w for _, w in textures], np.int32)]
+
+
+def _both(case):
+    """(port, reference) voxel dicts of one case of `textures_case`, over
+    the unit-cube bounds."""
+    arrays, textures, kw = textures_case(case)
     port = _voxels(pt.voxelize_soup(
         _soup(pt.TriangleSoup, arrays), _pool(pt.TexturePool, textures),
-        device="cpu", **kw))
-    with jax.disable_jit():
-        ref = _voxels(jeng.voxelize_soup(
-            _soup(jeng.TriangleSoup, arrays), _pool(JaxPool, textures), **kw))
+        device="cpu", bounds=BOUNDS, **kw))
+    ref = voxel_dict(reference("textures", case, *arrays, *texture_arrays(textures),
+                               *BOUNDS, **kw))
     return port, ref
 
 
@@ -102,9 +107,8 @@ FIXTURES = {
 
 @pytest.mark.parametrize("name", list(FIXTURES))
 def test_texture_fixtures_match_jax(name):
-    arrays, textures, strategy = FIXTURES[name]
-    port, ref = _both(arrays, textures, resolution=8, bounds=BOUNDS,
-                      pair_tile=1 << 12, strategy=strategy)
+    strategy = FIXTURES[name][2]
+    port, ref = _both(name)
     assert len(port) > 0
     _assert_parity(port, ref, strategy)
     if name == "v_flip":
@@ -159,15 +163,59 @@ def pass_log(monkeypatch):
     return log
 
 
-def check_random_soup(pass_log, strategy, **kw):
-    """Port against reference on `_random_textured(**kw)` with 2^12-slot
-    passes (the budget of every test here: the op-by-op reference compiles
-    each op once per shape); returns the port's output."""
-    arrays, textures = _random_textured(**kw)
-    r = kw["r"]
-    port, ref = _both(arrays, textures, resolution=r, bounds=BOUNDS,
-                      strategy=strategy, pair_tile=1 << 12,
-                      max_pass_budget=1 << 12)
+#: the seeded soups of `check_random_soup`: name -> `_random_textured`'s
+#: arguments
+RANDOM_SOUPS = {
+    # triangles inside one voxel each share one bucket: one slab, one pass
+    "one_pass": dict(n=200, r=16, spread=0.2),
+    # triangles of one AABB size, 7 voxels a side: one bucket, so few
+    # distinct pass shapes for the op-by-op reference to compile, and few
+    # live pairs per slab, so every slab's merge has the same padded size
+    "multi_pass": dict(n=60, r=32, spread=3.0, fixed=True),
+}
+
+
+def _giant_inputs():
+    """An axis-aligned textured triangle, not subdivided: at r = 66 its AABB
+    holds 66 x 66 slots, over the 2^12-slot pass budget."""
+    img = (0xFF000000 | np.arange(35, dtype=np.uint32) * 0x050301).reshape(5, 7)
+    arrays = tuple(a[:1] for a in _plane(C.TRI_TEXTURED, tex=0))
+    arrays = (arrays[0] * np.float32([1, 1, 0.6]),
+              arrays[1] * np.float32(2.5) - np.float32(0.7), *arrays[2:])
+    return arrays, [(img, C.UV_WRAP)]
+
+
+def textures_case(case):
+    """(arrays, textures, options) of each case compared with the JAX
+    package; every pass takes 2^12 slots (the op-by-op reference compiled
+    each op once per shape)."""
+    small = dict(pair_tile=1 << 12, max_pass_budget=1 << 12)
+    if case in FIXTURES:
+        arrays, textures, strategy = FIXTURES[case]
+        return arrays, textures, dict(resolution=8, pair_tile=1 << 12, strategy=strategy)
+    if case == "giant":
+        return (*_giant_inputs(), dict(resolution=66, **small))
+    if case == "one_texel":
+        img = np.full((1, 1), 0xFFFF0000, np.uint32)
+        return (_plane(C.TRI_TEXTURED, tex=0), [(img, C.UV_CLAMP)],
+                dict(resolution=8, pair_tile=1 << 12))
+    soup, strategy = case.rsplit("_", 1)
+    kw = RANDOM_SOUPS[soup]
+    return (*_random_textured(**kw), dict(resolution=kw["r"], strategy=int(strategy),
+                                          **small))
+
+
+TEXTURES_CASES = ([*FIXTURES, "giant", "one_texel"]
+                  + [f"{soup}_{s}" for soup in RANDOM_SOUPS
+                     for s in (C.MAX_STRATEGY, C.BLEND_STRATEGY)])
+
+
+def check_random_soup(pass_log, strategy, soup):
+    """Port against reference on the seeded soup `RANDOM_SOUPS[soup]`;
+    returns the port's output."""
+    case = f"{soup}_{strategy}"
+    _, textures, _ = textures_case(case)
+    port, ref = _both(case)
     _assert_parity(port, ref, strategy)
     # texels of every texture, under both wrap modes, reached the output
     if strategy == C.MAX_STRATEGY:
@@ -179,8 +227,7 @@ def check_random_soup(pass_log, strategy, **kw):
 @pytest.mark.parametrize("strategy", [C.MAX_STRATEGY, C.BLEND_STRATEGY],
                          ids=["max", "blend"])
 def test_random_textured_soup_one_pass_matches_jax(pass_log, strategy):
-    # triangles inside one voxel each share one bucket: one slab, one pass
-    port = check_random_soup(pass_log, strategy, n=200, r=16, spread=0.2)
+    port = check_random_soup(pass_log, strategy, "one_pass")
     assert len(pass_log) == 1
     assert len(port) > 100
 
@@ -189,12 +236,7 @@ def test_giant_textured_triangle_on_wide_passes(pass_log):
     # an axis-aligned triangle is not subdivided: at r = 66 its AABB holds
     # 66 x 66 slots, over the 2^12-slot pass budget, so all of its passes
     # are wide_local ones walking the slot domain
-    img = (0xFF000000 | np.arange(35, dtype=np.uint32) * 0x050301).reshape(5, 7)
-    arrays = tuple(a[:1] for a in _plane(C.TRI_TEXTURED, tex=0))
-    arrays = (arrays[0] * np.float32([1, 1, 0.6]),
-              arrays[1] * np.float32(2.5) - np.float32(0.7), *arrays[2:])
-    port, ref = _both(arrays, [(img, C.UV_WRAP)], resolution=66, bounds=BOUNDS,
-                      pair_tile=1 << 12, max_pass_budget=1 << 12)
+    port, ref = _both("giant")
     assert len(port) > 66 * 66 // 2
     _assert_parity(port, ref, C.MAX_STRATEGY)
     assert len(set(port.values())) == 35
@@ -205,9 +247,7 @@ def test_one_texel_pool_takes_the_untextured_path():
     # a pool of one 1x1 texture packs one pixel, which the JAX package takes
     # for "no textures" (engine.py:503): textured triangles get their flat
     # color, here white, instead of the texel
-    img = np.full((1, 1), 0xFFFF0000, np.uint32)
-    port, ref = _both(_plane(C.TRI_TEXTURED, tex=0), [(img, C.UV_CLAMP)],
-                      resolution=8, bounds=BOUNDS, pair_tile=1 << 12)
+    port, ref = _both("one_texel")
     assert port == ref
     assert set(port.values()) == {0xFFFFFFFF}
 

@@ -5,18 +5,18 @@ O2V_WEIGHT_MODE=input_area.
 Tolerances (PARITY.md "Fidelity scope"): the voxel set exactly, MAX colors
 byte for byte, BLEND colors within 1 LSB per channel; the pass's plain
 version's weights equal a float32 numpy area in the JAX kernel's order bit
-for bit.  The JAX reference runs op by op (`jax.disable_jit()`).
+for bit.  The JAX reference ran op by op (`jax.disable_jit()`);
+tests/fixtures/jax_weights.npz holds its outputs
+(scripts/jax_test_references.py).
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from obj2voxel_tpu import constants as C
-from obj2voxel_tpu import engine as jeng
-from obj2voxel_tpu.ops.color import TexturePool as JaxPool
+from jax_reference import reference, voxel_dict
 import obj2voxel_tpu_torch as pt
+from obj2voxel_tpu_torch import constants as C
 from obj2voxel_tpu_torch.ops.pass_fused import fused_pass, fused_pass_ref
 
 torch.set_num_threads(1)
@@ -50,29 +50,47 @@ def _soup_arrays(n, seed):
             rng.random((n, 3), dtype=np.float32), np.full(n, -1, np.int32))
 
 
-def _both(arrays, textures, monkeypatch, **kw):
-    """(port, reference, port without input-area weights) voxel dicts."""
-    from test_torch_textures import _pool
+def weights_case(case):
+    """(arrays, textures, options) of each case; the bounds are `BOUNDS`."""
+    if case == "textured":
+        from test_torch_textures import _random_textured
+
+        return (*_random_textured(40, 16, 1.4, seed=3),
+                dict(resolution=16, pair_tile=TILE))
+    return (_soup_arrays(200, seed=8), None,
+            dict(resolution=32, pair_tile=TILE, strategy=int(case.split("_")[1])))
+
+
+WEIGHTS_CASES = [f"untextured_{s}" for s in (C.MAX_STRATEGY, C.BLEND_STRATEGY)] + [
+    "textured"]
+
+
+def _both(case):
+    """(port, reference, port without input-area weights) voxel dicts; the
+    reference is the JAX package's under O2V_WEIGHT_MODE=input_area."""
+    from test_torch_textures import _pool, texture_arrays
+
+    arrays, textures, kw = weights_case(case)
 
     def pool(cls):
         return _pool(cls, textures) if textures else None
 
+    kw = dict(kw, bounds=BOUNDS)
     port = _voxels(pt.voxelize_soup(pt.TriangleSoup(*arrays), pool(pt.TexturePool),
                                     device="cpu", input_area_weights=True, **kw))
     plain = _voxels(pt.voxelize_soup(pt.TriangleSoup(*arrays), pool(pt.TexturePool),
                                      device="cpu", **kw))
-    monkeypatch.setenv("O2V_WEIGHT_MODE", "input_area")
-    with jax.disable_jit():
-        ref = _voxels(jeng.voxelize_soup(jeng.TriangleSoup(*arrays), pool(JaxPool), **kw))
+    del kw["bounds"]
+    ref = voxel_dict(reference("weights", case, *arrays,
+                               *(texture_arrays(textures) if textures else []),
+                               *BOUNDS, weight_mode="input_area", **kw))
     return port, ref, plain
 
 
 @pytest.mark.parametrize("strategy", [C.MAX_STRATEGY, C.BLEND_STRATEGY],
                          ids=["max", "blend"])
-def test_untextured_soup_matches_jax(monkeypatch, strategy):
-    port, ref, plain = _both(_soup_arrays(200, seed=8), None, monkeypatch,
-                             resolution=32, pair_tile=TILE, strategy=strategy,
-                             bounds=BOUNDS)
+def test_untextured_soup_matches_jax(strategy):
+    port, ref, plain = _both(f"untextured_{strategy}")
     assert set(port) == set(ref) == set(plain)
     assert _max_lsb(port, ref) <= (1 if strategy == C.BLEND_STRATEGY else 0)
     assert len(port) > 500
@@ -80,12 +98,8 @@ def test_untextured_soup_matches_jax(monkeypatch, strategy):
     assert sum(port[k] != plain[k] for k in port) > 10
 
 
-def test_textured_soup_matches_jax(monkeypatch):
-    from test_torch_textures import _random_textured
-
-    arrays, textures = _random_textured(40, 16, 1.4, seed=3)
-    port, ref, plain = _both(arrays, textures, monkeypatch, resolution=16,
-                             pair_tile=TILE, bounds=BOUNDS)
+def test_textured_soup_matches_jax():
+    port, ref, plain = _both("textured")
     assert port == ref
     assert set(port) == set(plain) and port != plain
 
