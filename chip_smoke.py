@@ -39,7 +39,10 @@ and pull on the 10M sphere at 1024^3 (each mode's bench.py JSON line after
 `[bench]`); 22 config 4 against the CPU run's bytes, then from the host
 planner and from 3 z windows; 23 config 6 against the CPU run's bytes, past
 32 slabs, its peak RSS under config 4's (each config's scale_proof.py JSON
-line after `[scale]`); 8 kernel timings beside each kernel's bound.  Prints one line per phase, a
+line after `[scale]`); 24 the device planner's stage 1 kernel plan_hist
+against its plain version on the 10M sphere at 1024, config 5's stack at
+64,000 and the 2M sphere at 8192; 8 kernel timings beside each kernel's
+bound.  Prints one line per phase, a
 JSON line with the kernels' launches, errors, times and bounds, and as its
 last line {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line is printed.
@@ -140,25 +143,30 @@ KERNELS = {
                       "obj2voxel_tpu/ops/pack_pallas.py:377"),
     "merge_runs": ("obj2voxel_tpu_torch/csrc/merge_runs.cu",
                    "obj2voxel_tpu/ops/merge_pallas.py:268"),
+    "plan_hist": ("obj2voxel_tpu_torch/csrc/plan_hist.cu",
+                  "no TPU kernel: the JAX planner's `_stage1`, "
+                  "obj2voxel_tpu/ops/plan_device.py:52"),
 }
 # the kernels each main path must launch (sharded: BLEND in 2 windows, then
 # MAX in 3 under O2V_MERGE_RUNS=1; clip_helper: the public per-pair clip;
 # batched: the sphere, the supersampled sphere and the batch under
 # O2V_BATCH=8, whose lone remainders still run single K1 passes; bench: the
 # bench entry's modes; scale_2048 and scale_8192: configs 4 and 6 through
-# Instance)
+# Instance).  Every stream plans on the device first, so every path but the
+# clip helper launches plan_hist, also where it then plans on the host
+# (batch, scale_8192: more than MAX_DEVICE_SLABS slabs)
 PATH_KERNELS = {
-    "untextured": ("fused_pass", "combine_pack"),
-    "textured": ("fused_pass", "combine_pack"),
-    "merge_runs": ("fused_pass", "merge_runs", "combine_pack"),
-    "supersampled": ("fused_pass", "combine_pack"),
-    "batch": ("fused_pass", "combine_pack"),
-    "sharded": ("fused_pass", "merge_runs", "combine_pack"),
+    "untextured": ("fused_pass", "combine_pack", "plan_hist"),
+    "textured": ("fused_pass", "combine_pack", "plan_hist"),
+    "merge_runs": ("fused_pass", "merge_runs", "combine_pack", "plan_hist"),
+    "supersampled": ("fused_pass", "combine_pack", "plan_hist"),
+    "batch": ("fused_pass", "combine_pack", "plan_hist"),
+    "sharded": ("fused_pass", "merge_runs", "combine_pack", "plan_hist"),
     "clip_helper": ("clip_pairs",),
-    "batched": ("fused_pass", "fused_pass_batch", "combine_pack"),
-    "bench": ("fused_pass", "combine_pack"),
-    "scale_2048": ("fused_pass", "combine_pack"),
-    "scale_8192": ("fused_pass", "combine_pack"),
+    "batched": ("fused_pass", "fused_pass_batch", "combine_pack", "plan_hist"),
+    "bench": ("fused_pass", "combine_pack", "plan_hist"),
+    "scale_2048": ("fused_pass", "combine_pack", "plan_hist"),
+    "scale_8192": ("fused_pass", "combine_pack", "plan_hist"),
 }
 # the kernels a main path must not launch: every merge runs K2 and K3 as
 # combine_pack, and every pass clips in K1
@@ -171,7 +179,7 @@ for path in ("bench", "scale_2048", "scale_8192"):
 for path in PATH_KERNELS:
     if "fused_pass_batch" not in PATH_KERNELS[path]:
         PATH_ABSENT[path] += ("fused_pass_batch",)
-ALL_PHASES = set(range(1, 24))
+ALL_PHASES = set(range(1, 25))
 
 
 def fail(msg):
@@ -1172,6 +1180,8 @@ def real_size(name, table, pool, aabb, is_blend, check, info, want=SPHERE_VOXELS
     read just after; then the warm median of 3 runs."""
     import obj2voxel_tpu_torch as pt
 
+    from obj2voxel_tpu_torch.engine import WAVE_STATS
+
     pt.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     voxels, checked = drive_sphere(table, pool, aabb, is_blend, check, **kw)
@@ -1179,6 +1189,11 @@ def real_size(name, table, pool, aabb, is_blend, check, info, want=SPHERE_VOXELS
     if voxels != want:
         fail(f"{name} sphere: {voxels} voxels, want {want}")
     check_path(name, launches)
+    # one device-planned conversion at 1024 or 2048 rows: one histogram in
+    # block-private shared memory
+    if launches["plan_hist"] != 1 or WAVE_STATS["hist_smem"] != 1:
+        fail(f"{name}: plan_hist launched {launches['plan_hist']} times, "
+             f"hist_smem {WAVE_STATS['hist_smem']}; want 1 and 1")
     if launches["combine_pack"] >= launches["fused_pass"]:
         # a slab merge runs combine_pack once or twice over its passes; as
         # many as the passes means a compaction per pass
@@ -1567,6 +1582,97 @@ def ptxas_usage(kernel):
             if spills and regs:
                 return int(regs.group(1)), int(spills.group(1)), text
     fail(f"ptxas report: no registers or spills for {kernel}")
+
+
+def stage1_tables():
+    """Phase 24's tables as (name, table on the card, n_sub, stride,
+    z_extent): bench.py's 10M sphere at 1024, config 5's 1000-sphere z
+    stack at 64,000 (the table `voxelize_batch` plans, captured on its way
+    to the planner, with that run's launches and WAVE_STATS) and the 2M
+    sphere at 8192."""
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch import engine
+
+    tables = []
+    table_np, aabb = sphere_table(SPHERE_10M_TRIS, SPHERE_RES)
+    tables.append(("10M sphere", pt.table_from_numpy(table_np, "cuda"),
+                   aabb[0].shape[0], SPHERE_RES, SPHERE_RES))
+    del table_np
+    captured, planner = [], engine.plan_mesh_device
+
+    def record(table, n_sub, stride, z_extent, *args, **kw):
+        captured.append((table, n_sub, stride, z_extent))
+        return planner(table, n_sub, stride, z_extent, *args, **kw)
+
+    soups = [pt.TriangleSoup.from_vertices(t) for t in batch_meshes()]
+    pt.reset_launches()
+    engine.plan_mesh_device = record
+    try:
+        pt.voxelize_batch(soups, resolution=BATCH_RES)
+    finally:
+        engine.plan_mesh_device = planner
+    batch_run = dict(pt.LAUNCHES), dict(engine.WAVE_STATS)
+    if len(captured) != 1:
+        fail(f"config 5's batch planned {len(captured)} streams, want 1")
+    tables.append(("config 5 stack", *captured[0]))
+    table_np, aabb = sphere_table(SPHERE_TRIS, 8192)
+    tables.append(("2M sphere @ 8192", pt.table_from_numpy(table_np, "cuda"),
+                   aabb[0].shape[0], 8192, 8192))
+    return tables, batch_run
+
+
+def phase_plan_hist(stats):
+    """The device planner's stage 1: the plan_hist kernel against the plain
+    `_stage1` (per_row, vmin and vmax equal) on the 10M sphere at 1024
+    (block-private shared-memory bins), config 5's stack at 64,000 (global
+    bins) and the 2M sphere at 8192 (shared, past the default 48 KB), each
+    called twice; one launch each, and one a batch with hist_smem 0; each
+    timed beside the plain version, the sphere's in turns."""
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch.ops.plan_device import _stage1, hist_in_smem, plan_hist
+
+    t0 = time.perf_counter()
+    tables, (batch_launches, batch_wave) = stage1_tables()
+    if batch_launches["plan_hist"] != 1 or batch_wave["hist_smem"] != 0:
+        fail(f"config 5's batch: plan_hist launched {batch_launches['plan_hist']} "
+             f"times, hist_smem {batch_wave['hist_smem']}; want 1 and 0")
+    details = [f"config 5's batch: 1 launch, hist_smem 0, host_plan "
+               f"{batch_wave['host_plan']}"]
+    for name, table, n_sub, stride, z_extent in tables:
+        want = _stage1(table, n_sub, stride, z_extent)
+        for call in ("first", "second"):
+            pt.reset_launches()
+            got = plan_hist(table, n_sub, stride, z_extent)
+            if pt.LAUNCHES["plan_hist"] != 1:
+                fail(f"plan_hist {name}: {pt.LAUNCHES['plan_hist']} launches")
+            for what, g, w in zip(("per_row", "vmin", "vmax"), got, want):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    fail(f"plan_hist {name}, {call} call: {what} differs from "
+                         "the plain version")
+        n = table.shape[0]
+        route = "shared" if hist_in_smem(z_extent) else "global"
+        ms = cuda_ms(lambda: plan_hist(table, n_sub, stride, z_extent))
+        plain_ms = cuda_ms(lambda: _stage1(table, n_sub, stride, z_extent))
+        # each row's nine vertex floats read and its two AABBs written; the
+        # rows' first two 32 B sectors are what the card moves
+        least = n * (36 + 24) / HBM_BYTES_PER_S * 1e3
+        sectors = n * (64 + 24) / HBM_BYTES_PER_S * 1e3
+        details.append(f"{name}: {n} rows ({n_sub} live), {z_extent + 1} bins "
+                       f"{route}, equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                       f"ms, bound {least:.4f} ms (60 B a row; {sectors:.4f} ms at "
+                       f"the sectors' 88 B)")
+        if name == "10M sphere":
+            ms, plain_ms, times = in_turns(
+                lambda: plan_hist(table, n_sub, stride, z_extent),
+                lambda: _stage1(table, n_sub, stride, z_extent))
+            details.append(f"in turns (kernel, plain, plain, kernel) "
+                           f"{[round(t, 4) for t in times]} ms")
+            stats["plan_hist"].update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                      max_abs_err=0.0)
+            bound(stats, "plan_hist", n * (36 + 24) + (z_extent + 1) * 8 * 2, 0)
+        del want, got
+    phase("24 plan_hist vs plain _stage1 (10M sphere @ 1024, config 5 stack @ "
+          "64000, 2M sphere @ 8192)", t0, "; ".join(details))
 
 
 def phase_k1_batch(stats):
@@ -2034,7 +2140,7 @@ def main():
     by_path = {path: {name: 0 for name in KERNELS} for path in PATH_KERNELS}
     for num, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3), (16, phase_rbk),
                     (9, phase_k4), (10, phase_k5), (13, phase_k6),
-                    (20, phase_k1_batch)):
+                    (20, phase_k1_batch), (24, phase_plan_hist)):
         if want & {num, 8}:
             launches = fn(stats)
             if num == 9:

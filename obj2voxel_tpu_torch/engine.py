@@ -90,7 +90,7 @@ from .ops.combine_pallas import combine_pack
 from .ops.merge_pallas import MAX_RUNS, merge_runs as merge_sorted_runs, plan_runs
 from .ops.pass_fused import fused_pass, fused_pass_batch
 from .ops.plan import plan_mesh
-from .ops.plan_device import gather_ordered, plan_mesh_device
+from .ops.plan_device import gather_ordered, hist_in_smem, plan_mesh_device
 from .ops.subdivide import subdivide_soup
 from .soup import TexturePool, TriangleSoup, build_tri_table
 from .utils import debug as _dbg
@@ -130,10 +130,12 @@ BATCH_BLOCK = 8192
 #: The last `stream_slabs` call's passes, dispatches (single passes and
 #: batched launches) and passes run batched (obj2voxel_tpu/engine.py
 #: WAVE_STATS), and, beyond the JAX package's keys, its slabs, its waves,
-#: its plan-order rows and whether the host planner planned it (1) or the
-#: device planner (0); not thread-safe, like the JAX package's.
+#: its plan-order rows, whether the host planner planned it (1) or the
+#: device planner (0), and whether the device planner's histogram kernel
+#: summed in block-private shared memory (1; ops/plan_device.hist_in_smem);
+#: not thread-safe, like the JAX package's.
 WAVE_STATS = {"passes": 0, "dispatches": 0, "batched": 0, "slabs": 0, "waves": 0,
-              "rows": 0, "host_plan": 0}
+              "rows": 0, "host_plan": 0, "hist_smem": 0}
 
 #: Under O2V_TIMING=1, the host seconds of each `[o2v-timing]` stage (load,
 #: prepare, table, plan, passes, merges, pulls, write), summed over the
@@ -526,7 +528,7 @@ def stream_slabs(
         tri_table.device.type == "cuda"
         or os.environ.get("O2V_BATCH_FORCE") == "1")
     WAVE_STATS.update(passes=0, dispatches=0, batched=0, slabs=0, waves=0,
-                      rows=0, host_plan=0)
+                      rows=0, host_plan=0, hist_smem=0)
 
     order = segments = None
     if os.environ.get("O2V_HOST_PLAN") != "1":
@@ -538,6 +540,8 @@ def stream_slabs(
             est = float(ext.prod(axis=1, dtype=np.int64).sum()) * step
             print(f"[o2v-timing]   hint {(time.perf_counter() - t0) * 1000:.0f}ms"
                   f" (est {est:.3g} -> {int(est / slot_budget) + 1})", flush=True)
+        WAVE_STATS["hist_smem"] = int(tri_table.device.type == "cuda"
+                                      and hist_in_smem(z_extent))
         order, segments = plan_mesh_device(
             tri_table, n_sub, stride, z_extent, slot_budget, group=group,
             z_window=z_window,

@@ -41,7 +41,7 @@ COMPACT_TILE = 256
 #: its kernel and nowhere else.
 LAUNCHES = {"fused_pass": 0, "fused_pass_batch": 0, "segment_combine": 0,
             "pack_exact": 0, "combine_pack": 0, "clip_pairs": 0,
-            "pack_channels": 0, "merge_runs": 0}
+            "pack_channels": 0, "merge_runs": 0, "plan_hist": 0}
 
 #: Seconds the last build took (None: loaded from an existing build).
 BUILD_SECONDS = None
@@ -69,6 +69,9 @@ _SIGNATURES = {
     # keys, w, r, g, b, out x5, composite scratch, level plans (host),
     # n_levels, n, stream
     "o2v_merge_runs": [_P] * 5 + [_P] * 5 + [_P, _P] + [_I, _I] + [_P],
+    # table, vmin, vmax, diff (zeroed), n, n_sub, stride, z_extent, shared,
+    # stream
+    "o2v_plan_hist": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _LIB = None

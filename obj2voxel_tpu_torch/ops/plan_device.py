@@ -5,7 +5,9 @@ The port of obj2voxel_tpu/ops/plan_device.py's two-pull flow:
   stage 1: per-triangle voxel AABBs and a per-z-row slot histogram, summed
            in int64 (exact, and deterministic on CUDA, unlike float
            atomics); one small copy to the host feeds the shared slab loop
-           (expand_bucket.slabs_from_rows).
+           (expand_bucket.slabs_from_rows).  `plan_hist` runs it: the plain
+           `_stage1` for CPU tensors, one launch of csrc/plan_hist.cu for
+           CUDA tensors.
   stage 2: a (group x slab) key matrix, key = slab*64 + ceil_log2(
            slab-clamped AABB volume), stable-sorted with the group id as
            payload; segment bounds come from one searchsorted copy.  The
@@ -21,13 +23,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _cuda
 from .expand_bucket import slabs_from_rows
 from .plan import Segment
 
-__all__ = ["plan_mesh_device", "gather_ordered", "MAX_DEVICE_SLABS"]
+__all__ = ["plan_mesh_device", "gather_ordered", "plan_hist", "hist_in_smem",
+           "MAX_DEVICE_SLABS", "HIST_SMEM_BYTES"]
 
 MAX_DEVICE_SLABS = 32
 _S_LADDER = (1, 2, 4, 8, 16, 32)
+
+#: The most bytes of int64 bins that `plan_hist`'s kernel keeps in each
+#: block's shared memory.  At 96 KiB two blocks of 256 threads still fit an
+#: SM (228 KB), 16 warps with row loads in flight; it covers z_extent 1024,
+#: 2048 and 8192 (8193 bins, 64 KiB + 8 B).  Past it the kernel adds into
+#: the global bins (config 5's stack at 64^3: 64,001 bins).
+HIST_SMEM_BYTES = 96 * 1024
 
 
 def _stage1(table, n_sub, stride, z_extent):
@@ -50,6 +61,43 @@ def _stage1(table, n_sub, stride, z_extent):
     diff.index_add_(0, vmax[:, 2].to(torch.int64), -area)
     per_row = torch.cumsum(diff[:-1], 0)
     return per_row, vmin, vmax
+
+
+def hist_in_smem(z_extent):
+    """Whether `plan_hist`'s kernel sums into block-private shared-memory
+    bins (else straight into the global ones): z_extent + 1 int64 bins fit
+    in HIST_SMEM_BYTES."""
+    return (z_extent + 1) * 8 <= HIST_SMEM_BYTES
+
+
+def plan_hist(table, n_sub, stride, z_extent):
+    """Stage 1: (per_row int64 (z_extent,), vmin, vmax int32 (N, 3)).
+
+    The plain `_stage1` for CPU tensors; for CUDA tensors one launch of
+    csrc/plan_hist.cu on the current stream, bit-identical to it."""
+    if table.device.type == "cpu":
+        return _stage1(table, n_sub, stride, z_extent)
+    dev = _cuda.require_cuda("plan_hist", table)
+    n = table.shape[0]
+    if table.dim() != 2 or table.shape[1] != 24 or table.dtype != torch.float32:
+        raise ValueError("plan_hist: the table must be (N, 24) float32")
+    if not 0 < n < 1 << 31:
+        raise ValueError(f"plan_hist: {n} rows out of range")
+    if table.data_ptr() % 16:
+        raise ValueError("plan_hist: the table is not 16-byte aligned")
+    vmin = torch.empty((n, 3), dtype=torch.int32, device=dev)
+    vmax = torch.empty((n, 3), dtype=torch.int32, device=dev)
+    diff = torch.zeros(z_extent + 1, dtype=torch.int64, device=dev)
+    err = _cuda.lib().o2v_plan_hist(
+        table.data_ptr(), vmin.data_ptr(), vmax.data_ptr(), diff.data_ptr(),
+        n, n_sub, stride, z_extent, int(hist_in_smem(z_extent)),
+        _cuda.stream_ptr(dev),
+    )
+    _cuda.check(err, "plan_hist")
+    _cuda.count_launch("plan_hist")
+    # one small launch over z_extent bins keeps per_row what `_stage1`
+    # returns; the planner copies it to the host next
+    return torch.cumsum(diff[:-1], 0), vmin, vmax
 
 
 def _ceil_log2(c):
@@ -117,7 +165,7 @@ def plan_mesh_device(table, n_sub, stride, z_extent, slot_budget, align=2,
     """
     if table.shape[0] % group:
         raise ValueError(f"group {group} does not divide {table.shape[0]} rows")
-    per_row, vmin, vmax = _stage1(table, n_sub, stride, z_extent)
+    per_row, vmin, vmax = plan_hist(table, n_sub, stride, z_extent)
     per_row_h = per_row.cpu().numpy()
     slabs = slabs_from_rows(per_row_h, stride, z_extent, slot_budget, align,
                             z_window)
