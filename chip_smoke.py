@@ -41,8 +41,9 @@ planner and from 3 z windows; 23 config 6 against the CPU run's bytes, past
 32 slabs, its peak RSS under config 4's (each config's scale_proof.py JSON
 line after `[scale]`); 24 the device planner's stage 1 kernel plan_hist
 against its plain version on the 10M sphere at 1024, config 5's stack at
-64,000 and the 2M sphere at 8192; 8 kernel timings beside each kernel's
-bound.  Prints one line per phase, a
+64,000 and the 2M sphere at 8192; 25 its stage 2 kernels plan_keys and
+plan_scatter against the plain `_stage2` on the 10M sphere (group 8 and 1)
+and the 2M sphere at 2048; 8 kernel timings beside each kernel's bound.  Prints one line per phase, a
 JSON line with the kernels' launches, errors, times and bounds, and as its
 last line {"ok": true, "device": {...}}.  Any failure raises and exits
 non-zero before that line is printed.
@@ -146,6 +147,13 @@ KERNELS = {
     "plan_hist": ("obj2voxel_tpu_torch/csrc/plan_hist.cu",
                   "no TPU kernel: the JAX planner's `_stage1`, "
                   "obj2voxel_tpu/ops/plan_device.py:52"),
+    # stage 2's stable counting sort: keys and counts, then the scatter
+    "plan_keys": ("obj2voxel_tpu_torch/csrc/plan_keys.cu",
+                  "no TPU kernel: the JAX planner's `_stage2` keys, "
+                  "obj2voxel_tpu/ops/plan_device.py"),
+    "plan_scatter": ("obj2voxel_tpu_torch/csrc/plan_keys.cu",
+                     "no TPU kernel: the JAX planner's `_stage2` sort, "
+                     "obj2voxel_tpu/ops/plan_device.py"),
 }
 # the kernels each main path must launch (sharded: BLEND in 2 windows, then
 # MAX in 3 under O2V_MERGE_RUNS=1; clip_helper: the public per-pair clip;
@@ -154,18 +162,21 @@ KERNELS = {
 # bench entry's modes; scale_2048 and scale_8192: configs 4 and 6 through
 # Instance).  Every stream plans on the device first, so every path but the
 # clip helper launches plan_hist, also where it then plans on the host
-# (batch, scale_8192: more than MAX_DEVICE_SLABS slabs)
+# (scale_8192: more than MAX_DEVICE_SLABS slabs); the streams planned on the
+# device (config 5's stack too: 17 slabs) go on to stage 2's plan_keys and
+# plan_scatter
+PLAN = ("plan_hist", "plan_keys", "plan_scatter")
 PATH_KERNELS = {
-    "untextured": ("fused_pass", "combine_pack", "plan_hist"),
-    "textured": ("fused_pass", "combine_pack", "plan_hist"),
-    "merge_runs": ("fused_pass", "merge_runs", "combine_pack", "plan_hist"),
-    "supersampled": ("fused_pass", "combine_pack", "plan_hist"),
-    "batch": ("fused_pass", "combine_pack", "plan_hist"),
-    "sharded": ("fused_pass", "merge_runs", "combine_pack", "plan_hist"),
+    "untextured": ("fused_pass", "combine_pack", *PLAN),
+    "textured": ("fused_pass", "combine_pack", *PLAN),
+    "merge_runs": ("fused_pass", "merge_runs", "combine_pack", *PLAN),
+    "supersampled": ("fused_pass", "combine_pack", *PLAN),
+    "batch": ("fused_pass", "combine_pack", *PLAN),
+    "sharded": ("fused_pass", "merge_runs", "combine_pack", *PLAN),
     "clip_helper": ("clip_pairs",),
-    "batched": ("fused_pass", "fused_pass_batch", "combine_pack", "plan_hist"),
-    "bench": ("fused_pass", "combine_pack", "plan_hist"),
-    "scale_2048": ("fused_pass", "combine_pack", "plan_hist"),
+    "batched": ("fused_pass", "fused_pass_batch", "combine_pack", *PLAN),
+    "bench": ("fused_pass", "combine_pack", *PLAN),
+    "scale_2048": ("fused_pass", "combine_pack", *PLAN),
     "scale_8192": ("fused_pass", "combine_pack", "plan_hist"),
 }
 # the kernels a main path must not launch: every merge runs K2 and K3 as
@@ -179,7 +190,8 @@ for path in ("bench", "scale_2048", "scale_8192"):
 for path in PATH_KERNELS:
     if "fused_pass_batch" not in PATH_KERNELS[path]:
         PATH_ABSENT[path] += ("fused_pass_batch",)
-ALL_PHASES = set(range(1, 25))
+PATH_ABSENT["scale_8192"] += ("plan_keys", "plan_scatter")
+ALL_PHASES = set(range(1, 26))
 
 
 def fail(msg):
@@ -1190,10 +1202,13 @@ def real_size(name, table, pool, aabb, is_blend, check, info, want=SPHERE_VOXELS
         fail(f"{name} sphere: {voxels} voxels, want {want}")
     check_path(name, launches)
     # one device-planned conversion at 1024 or 2048 rows: one histogram in
-    # block-private shared memory
+    # block-private shared memory, one stage 2 counting sort
     if launches["plan_hist"] != 1 or WAVE_STATS["hist_smem"] != 1:
         fail(f"{name}: plan_hist launched {launches['plan_hist']} times, "
              f"hist_smem {WAVE_STATS['hist_smem']}; want 1 and 1")
+    if launches["plan_keys"] != 1 or launches["plan_scatter"] != 1:
+        fail(f"{name}: plan_keys and plan_scatter launched {launches['plan_keys']}"
+             f" and {launches['plan_scatter']} times; want 1 and 1")
     if launches["combine_pack"] >= launches["fused_pass"]:
         # a slab merge runs combine_pack once or twice over its passes; as
         # many as the passes means a compaction per pass
@@ -1675,6 +1690,155 @@ def phase_plan_hist(stats):
           "64000, 2M sphere @ 8192)", t0, "; ".join(details))
 
 
+def stage2_inputs(table, n_sub, stride, z_extent):
+    """Stage 2's inputs as the planner builds them: vmin, vmax (plan_hist)
+    and the padded slab rows of the engine's slot budget."""
+    from obj2voxel_tpu_torch import engine
+    from obj2voxel_tpu_torch.ops.expand_bucket import slabs_from_rows
+    from obj2voxel_tpu_torch.ops.plan_device import plan_hist, slab_rows
+
+    per_row, vmin, vmax = plan_hist(table, n_sub, stride, z_extent)
+    slot_budget = 4 * min(engine.PAIR_TILE, engine.MAX_PASS_BUDGET)
+    slabs = slabs_from_rows(per_row.cpu().numpy(), stride, z_extent, slot_budget)
+    return vmin, vmax, *slab_rows(slabs, z_extent), len(slabs)
+
+
+def phase_plan_order(stats):
+    """The device planner's stage 2: `plan_order`'s kernels (plan_keys, a
+    torch.cumsum, the bounds' read-back, plan_scatter) against the plain
+    `_stage2` on the 10M sphere at 1024 (group 8, as the engine plans, and
+    group 1; 6 slabs, s_pad 8) and the 2M sphere at 2048 (16 slabs, s_pad
+    16; the supersampled path's table): the order's live prefix and the
+    bounds equal, twice each, one launch of each kernel a call.  The whole
+    stage is timed beside `_stage2` in turns, each kernel alone beside its
+    plain part (`_stage2_keys`; `_sort_keys`), with the peak memory each
+    takes over its inputs."""
+    import obj2voxel_tpu_torch as pt
+    from obj2voxel_tpu_torch.ops import _cuda
+    from obj2voxel_tpu_torch.ops.plan_device import (
+        _sort_keys, _stage2, _stage2_keys, order_units, plan_order,
+    )
+
+    t0 = time.perf_counter()
+    details = []
+    cases = []
+    table_np, aabb = sphere_table(SPHERE_10M_TRIS, SPHERE_RES)
+    table = pt.table_from_numpy(table_np, "cuda")
+    del table_np
+    inputs = stage2_inputs(table, aabb[0].shape[0], SPHERE_RES, SPHERE_RES)
+    cases += [("10M sphere, group 8", aabb[0].shape[0], 8, inputs),
+              ("10M sphere, group 1", aabb[0].shape[0], 1, inputs)]
+    del table
+    table_np, aabb = sphere_table(SPHERE_TRIS, 2 * SPHERE_RES)
+    table = pt.table_from_numpy(table_np, "cuda")
+    del table_np
+    cases.append(("2M sphere @ 2048, group 8", aabb[0].shape[0], 8,
+                  stage2_inputs(table, aabb[0].shape[0], 2 * SPHERE_RES,
+                                2 * SPHERE_RES)))
+    del table
+    for name, n_sub, group, (vmin, vmax, starts, stops, n_slabs) in cases:
+        s_pad = len(starts)
+        lo = torch.from_numpy(starts).cuda()
+        hi = torch.from_numpy(stops).cuda()
+        want_order, want_bounds = _stage2(vmin, vmax, n_sub, lo, hi, n_slabs,
+                                          s_pad, group)
+        total = int(want_bounds[-1])
+        want_order = want_order[:total].clone()
+        want_bounds = want_bounds.cpu()
+        for call in ("first", "second"):
+            pt.reset_launches()
+            order, bounds = plan_order(vmin, vmax, n_sub, starts, stops, n_slabs,
+                                       group)
+            torch.cuda.synchronize()
+            if pt.LAUNCHES["plan_keys"] != 1 or pt.LAUNCHES["plan_scatter"] != 1:
+                fail(f"plan_order {name}: {pt.LAUNCHES['plan_keys']} plan_keys, "
+                     f"{pt.LAUNCHES['plan_scatter']} plan_scatter launches")
+            if not torch.equal(bounds, want_bounds):
+                fail(f"plan_order {name}, {call} call: bounds differ from _stage2")
+            if order.shape != (total,) or not torch.equal(order, want_order):
+                fail(f"plan_order {name}, {call} call: the order differs from "
+                     "_stage2's live prefix")
+        del order, want_order
+
+        def kernels():
+            return plan_order(vmin, vmax, n_sub, starts, stops, n_slabs, group)
+
+        def plain():
+            o, b = _stage2(vmin, vmax, n_sub, lo, hi, n_slabs, s_pad, group)
+            return o, b.cpu()
+
+        ms, plain_ms, times = in_turns(kernels, plain, reps=5)
+        peaks = []
+        for fn in (kernels, plain):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+        # each kernel alone, on the buffers plan_order makes
+        n_act = -(-n_sub // group)
+        units, chunk = order_units(n_act)
+        keys = torch.empty(s_pad * n_act, dtype=torch.int16, device="cuda")
+        counts = torch.empty((s_pad * 64, units), dtype=torch.int32, device="cuda")
+        lo32 = np.ascontiguousarray(starts, np.int32)
+        hi32 = np.ascontiguousarray(stops, np.int32)
+        lib, stream = _cuda.lib(), _cuda.stream_ptr(torch.device("cuda"))
+
+        def launch_keys():
+            _cuda.check(lib.o2v_plan_keys(
+                vmin.data_ptr(), vmax.data_ptr(), keys.data_ptr(),
+                counts.data_ptr(), n_act, n_sub, group, s_pad, n_slabs,
+                lo32.ctypes.data, hi32.ctypes.data, units, chunk, stream),
+                "plan_keys")
+
+        launch_keys()
+        inclusive = torch.cumsum(counts.view(-1), 0, dtype=torch.int32)
+        order = torch.empty(total, dtype=torch.int64, device="cuda")
+
+        def launch_scatter():
+            _cuda.check(lib.o2v_plan_scatter(
+                keys.data_ptr(), counts.data_ptr(), inclusive.data_ptr(),
+                order.data_ptr(), n_act, s_pad, units, chunk, stream),
+                "plan_scatter")
+
+        keys_ms = cuda_ms(launch_keys)
+        scan_ms = cuda_ms(lambda: torch.cumsum(counts.view(-1), 0,
+                                               dtype=torch.int32))
+        scatter_ms = cuda_ms(launch_scatter)
+        key_matrix = _stage2_keys(vmin, vmax, n_sub, lo, hi, n_slabs, s_pad, group)
+        plain_keys_ms = cuda_ms(lambda: _stage2_keys(vmin, vmax, n_sub, lo, hi,
+                                                     n_slabs, s_pad, group), reps=3)
+        plain_sort_ms = cuda_ms(lambda: _sort_keys(key_matrix), reps=3)
+        # the least bytes: each live row's AABBs read, each 16-bit key
+        # written and read, each live incidence's group id written
+        keys_bytes = n_sub * 24 + n_act * s_pad * 2
+        scatter_bytes = n_act * s_pad * 2 + total * 8
+        details.append(
+            f"{name}: {vmin.shape[0]} rows ({n_sub} live), {n_slabs} slabs "
+            f"(s_pad {s_pad}), {total} live incidences, {units} warps of "
+            f"{chunk} groups; equal; stage in turns (kernels, plain, plain, "
+            f"kernels) {[round(t, 4) for t in times]} ms; plan_keys "
+            f"{keys_ms:.4f} ms (plain keys {plain_keys_ms:.4f}), cumsum "
+            f"{scan_ms:.4f} ms, plan_scatter {scatter_ms:.4f} ms (plain sort, "
+            f"gather and searchsorted {plain_sort_ms:.4f}); bounds "
+            f"{keys_bytes / HBM_BYTES_PER_S * 1e3:.4f} and "
+            f"{scatter_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; peak over the "
+            f"inputs: kernels {peaks[0]:.3f} GiB, plain {peaks[1]:.3f} GiB")
+        if name == "10M sphere, group 8":
+            stats["plan_keys"].update(ms=keys_ms, plain_ms=plain_keys_ms,
+                                      library_ms=None, max_abs_err=0.0)
+            bound(stats, "plan_keys", keys_bytes, 0)
+            stats["plan_scatter"].update(ms=scatter_ms, plain_ms=plain_sort_ms,
+                                         library_ms=None, max_abs_err=0.0)
+            bound(stats, "plan_scatter", scatter_bytes, 0)
+            details.append(f"stage 2 whole: kernels {ms:.4f} ms against plain "
+                           f"{plain_ms:.4f} ms")
+        del keys, counts, inclusive, order, key_matrix
+    phase("25 plan_keys + plan_scatter vs plain _stage2 (10M sphere @ 1024, "
+          "group 8 and 1; 2M sphere @ 2048)", t0, "; ".join(details))
+
+
 def phase_k1_batch(stats):
     """K1's batched form bit for bit against its plain version and against
     one K1 launch a pass, on the counts and each pass's live rows: the
@@ -2140,7 +2304,8 @@ def main():
     by_path = {path: {name: 0 for name in KERNELS} for path in PATH_KERNELS}
     for num, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3), (16, phase_rbk),
                     (9, phase_k4), (10, phase_k5), (13, phase_k6),
-                    (20, phase_k1_batch), (24, phase_plan_hist)):
+                    (20, phase_k1_batch), (24, phase_plan_hist),
+                    (25, phase_plan_order)):
         if want & {num, 8}:
             launches = fn(stats)
             if num == 9:

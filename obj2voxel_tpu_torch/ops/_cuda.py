@@ -41,7 +41,8 @@ COMPACT_TILE = 256
 #: its kernel and nowhere else.
 LAUNCHES = {"fused_pass": 0, "fused_pass_batch": 0, "segment_combine": 0,
             "pack_exact": 0, "combine_pack": 0, "clip_pairs": 0,
-            "pack_channels": 0, "merge_runs": 0, "plan_hist": 0}
+            "pack_channels": 0, "merge_runs": 0, "plan_hist": 0,
+            "plan_keys": 0, "plan_scatter": 0}
 
 #: Seconds the last build took (None: loaded from an existing build).
 BUILD_SECONDS = None
@@ -72,6 +73,11 @@ _SIGNATURES = {
     # table, vmin, vmax, diff (zeroed), n, n_sub, stride, z_extent, shared,
     # stream
     "o2v_plan_hist": [_P] * 4 + [_I] * 5 + [_P],
+    # vmin, vmax, keys, counts, n_act, n_sub, group, s_pad, n_slabs, starts
+    # and stops (host int32), units, chunk, stream
+    "o2v_plan_keys": [_P] * 4 + [_I] * 5 + [_P, _P] + [_I, _I] + [_P],
+    # keys, counts, inclusive counts, order, n_act, s_pad, units, chunk, stream
+    "o2v_plan_scatter": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _LIB = None

@@ -8,10 +8,17 @@ The port of obj2voxel_tpu/ops/plan_device.py's two-pull flow:
            (expand_bucket.slabs_from_rows).  `plan_hist` runs it: the plain
            `_stage1` for CPU tensors, one launch of csrc/plan_hist.cu for
            CUDA tensors.
-  stage 2: a (group x slab) key matrix, key = slab*64 + ceil_log2(
-           slab-clamped AABB volume), stable-sorted with the group id as
-           payload; segment bounds come from one searchsorted copy.  The
+  stage 2: one key per (group, slab) incidence, key = slab*64 + ceil_log2(
+           the group's largest slab-clamped AABB volume), stably sorted
+           with the group id as payload; the segment bounds count the keys
+           below each bin and come to the host in one small copy.  The
            order stays on the device and feeds `gather_ordered`.
+           `plan_order` runs it: the plain `_stage2` (a (group x slab) key
+           matrix and a stable sort) for CPU tensors; for CUDA tensors a
+           stable counting sort in csrc/plan_keys.cu (the keys in registers,
+           16-bit keys and a (bin, warp) count matrix in memory, a
+           torch.cumsum over the counts, then a scatter), with no
+           (rows x slabs) temporaries.
 
 At group = 1 the order and segments are bit-identical to the host planner
 ops/plan.plan_mesh.  The fused single-pull planner (`_stage12`) of the JAX
@@ -28,7 +35,8 @@ from .expand_bucket import slabs_from_rows
 from .plan import Segment
 
 __all__ = ["plan_mesh_device", "gather_ordered", "plan_hist", "hist_in_smem",
-           "MAX_DEVICE_SLABS", "HIST_SMEM_BYTES"]
+           "plan_order", "order_units", "slab_rows", "MAX_DEVICE_SLABS",
+           "HIST_SMEM_BYTES", "ORDER_WARPS"]
 
 MAX_DEVICE_SLABS = 32
 _S_LADDER = (1, 2, 4, 8, 16, 32)
@@ -39,6 +47,12 @@ _S_LADDER = (1, 2, 4, 8, 16, 32)
 #: 2048 and 8192 (8193 bins, 64 KiB + 8 B).  Past it the kernel adds into
 #: the global bins (config 5's stack at 64^3: 64,001 bins).
 HIST_SMEM_BYTES = 96 * 1024
+
+#: The most warps of `plan_order`'s kernels: each takes one contiguous range
+#: of groups and owns one column of the (bin, warp) count matrix, so more
+#: warps mean more loads in flight and a larger matrix to scan.  4096 is 31
+#: an SM of the H100's 132; the matrix then holds s_pad * 64 * 4096 int32.
+ORDER_WARPS = 4096
 
 
 def _stage1(table, n_sub, stride, z_extent):
@@ -108,12 +122,9 @@ def _ceil_log2(c):
     return torch.where(c <= 1, torch.zeros_like(k), k)
 
 
-def _stage2(vmin, vmax, n_sub, starts, stops, n_slabs, s_pad, group=1):
-    """Stable-sort (slab*64 + k) keys over all (group, slab) incidences.
-
-    Returns (sorted group ids (N/group * s_pad,) on the device, segment
-    bounds (s_pad*64 + 1,) in group units).  Dead incidences key to
-    s_pad*64 and sort to the tail."""
+def _stage2_keys(vmin, vmax, n_sub, starts, stops, n_slabs, s_pad, group=1):
+    """The (N/group, s_pad) int64 key matrix of `_stage2`: slab*64 + the
+    largest k over the group's live rows, s_pad*64 where none is live."""
     dev = vmin.device
     row = torch.arange(vmin.shape[0], device=dev)
     sx = (vmax[:, 0] - vmin[:, 0]).to(torch.int64)
@@ -134,17 +145,123 @@ def _stage2(vmin, vmax, n_sub, starts, stops, n_slabs, s_pad, group=1):
         k = torch.where(live, k, torch.full_like(k, -1))
         k = k.reshape(n_g, group, s_pad).amax(dim=1)
         live = live.reshape(n_g, group, s_pad).any(dim=1)
-        row = torch.arange(n_g, device=dev)
-    key = torch.where(live, s_id[None, :] * 64 + k,
-                      torch.full_like(k, s_pad * 64))
+    return torch.where(live, s_id[None, :] * 64 + k,
+                       torch.full_like(k, s_pad * 64))
 
-    tri = row[:, None].expand(key.shape)
+
+def _sort_keys(key):
+    """Stable-sort a (groups, s_pad) key matrix flat, the group id as the
+    payload: (sorted group ids, bounds (s_pad*64 + 1,) = keys below each
+    bin)."""
+    n_g, s_pad = key.shape
+    dev = key.device
+    tri = torch.arange(n_g, device=dev)[:, None].expand(key.shape)
     skey, perm = torch.sort(key.reshape(-1), stable=True)
     stri = tri.reshape(-1)[perm]
     bounds = torch.searchsorted(
         skey, torch.arange(s_pad * 64 + 1, dtype=torch.int64, device=dev)
     )
     return stri, bounds
+
+
+def _stage2(vmin, vmax, n_sub, starts, stops, n_slabs, s_pad, group=1):
+    """Stable-sort (slab*64 + k) keys over all (group, slab) incidences.
+
+    Returns (sorted group ids (N/group * s_pad,) on the device, segment
+    bounds (s_pad*64 + 1,) in group units).  Dead incidences key to
+    s_pad*64 and sort to the tail."""
+    return _sort_keys(_stage2_keys(vmin, vmax, n_sub, starts, stops, n_slabs,
+                                   s_pad, group))
+
+
+def order_units(n_act):
+    """(warps, groups a warp) of `plan_order`'s kernels over n_act groups:
+    at most ORDER_WARPS warps, each a whole number of 32-group rounds; at
+    least one warp, whose range may be empty."""
+    warps = max(1, min(ORDER_WARPS, -(-n_act // 32)))
+    chunk = -(-n_act // (warps * 32)) * 32 or 32
+    return max(1, -(-n_act // chunk)), chunk
+
+
+def plan_order(vmin, vmax, n_sub, starts, stops, n_slabs, group=1):
+    """Stage 2: (order, bounds) for the slabs [starts[s], stops[s]), s <
+    n_slabs (numpy int64 (s_pad,), padded past n_slabs as `_stage2` pads).
+
+    order: group ids on the tensors' device, int64; bounds: (s_pad*64 + 1,)
+    int64 on the host, the keys below each bin.  The first bounds[-1]
+    entries of the order are the plan order; nothing reads past them (the
+    planner hands out order[: segments[-1].r1 // group]).  CPU tensors take
+    the plain `_stage2`, whose order goes on with the dead incidences.
+    CUDA tensors take csrc/plan_keys.cu: one `plan_keys` launch (keys and
+    the (bin, warp) counts), a torch.cumsum over the counts, the bounds'
+    read-back, then one `plan_scatter` launch that writes the bounds[-1]
+    live entries (none where there are none); bit-identical to `_stage2`'s
+    prefix."""
+    if vmin.device.type == "cpu":
+        return _stage2(vmin, vmax, n_sub, torch.from_numpy(starts),
+                       torch.from_numpy(stops), n_slabs, len(starts), group)
+    dev = _cuda.require_cuda("plan_order", vmin, vmax)
+    return _order_kernels(vmin, vmax, n_sub, starts, stops, n_slabs, group, dev)
+
+
+def _order_kernels(vmin, vmax, n_sub, starts, stops, n_slabs, group, dev):
+    """`plan_order`'s CUDA branch: the two launches around the scan."""
+    n, s_pad = vmin.shape[0], len(starts)
+    if (vmin.dtype != torch.int32 or vmax.dtype != torch.int32
+            or vmin.dim() != 2 or vmin.shape[1] != 3 or vmax.shape != vmin.shape):
+        raise ValueError("plan_order: vmin and vmax must be (N, 3) int32")
+    if vmin.data_ptr() % 16 or vmax.data_ptr() % 16:
+        raise ValueError("plan_order: vmin or vmax is not 16-byte aligned")
+    if s_pad not in _S_LADDER or len(stops) != s_pad or not 0 < n_slabs <= s_pad:
+        raise ValueError(f"plan_order: {n_slabs} slabs of {s_pad} out of range")
+    if group < 1 or group & (group - 1) or n % group or not 0 <= n_sub <= n:
+        raise ValueError(f"plan_order: group {group} or n_sub {n_sub} does not "
+                         f"fit {n} rows")
+    n_act = -(-n_sub // group)
+    if n_act * s_pad >= 1 << 31:
+        raise ValueError(f"plan_order: {n_act} groups x {s_pad} slabs past 2^31")
+    lo = np.ascontiguousarray(starts, dtype=np.int32)
+    hi = np.ascontiguousarray(stops, dtype=np.int32)
+    units, chunk = order_units(n_act)
+    n_bins = s_pad * 64
+    # uint16 keys, slab-major; only the kernels read them
+    keys = torch.empty(s_pad * n_act, dtype=torch.int16, device=dev)
+    counts = torch.empty((n_bins, units), dtype=torch.int32, device=dev)
+    lib = _cuda.lib()
+    stream = _cuda.stream_ptr(dev)
+    err = lib.o2v_plan_keys(
+        vmin.data_ptr(), vmax.data_ptr(), keys.data_ptr(), counts.data_ptr(),
+        n_act, n_sub, group, s_pad, n_slabs, lo.ctypes.data, hi.ctypes.data,
+        units, chunk, stream,
+    )
+    _cuda.check(err, "plan_keys")
+    _cuda.count_launch("plan_keys")
+    # bin-major: each warp's base in each bin, and each bin's end
+    inclusive = torch.cumsum(counts.view(-1), 0, dtype=torch.int32)
+    bounds = torch.zeros(n_bins + 1, dtype=torch.int64)
+    bounds[1:] = inclusive.view(n_bins, units)[:, -1].cpu()
+    total = int(bounds[-1])
+    order = torch.empty(total, dtype=torch.int64, device=dev)
+    if total:
+        err = lib.o2v_plan_scatter(
+            keys.data_ptr(), counts.data_ptr(), inclusive.data_ptr(),
+            order.data_ptr(), n_act, s_pad, units, chunk, stream,
+        )
+        _cuda.check(err, "plan_scatter")
+        _cuda.count_launch("plan_scatter")
+    return order, bounds
+
+
+def slab_rows(slabs, z_extent):
+    """Stage 2's slab rows: (starts, stops) int64 (s_pad,), s_pad the first
+    rung of the ladder that holds the slabs, padded with empty slabs at
+    z_extent."""
+    s_pad = next(s for s in _S_LADDER if s >= len(slabs))
+    starts = np.full(s_pad, z_extent, np.int64)
+    stops = np.full(s_pad, z_extent, np.int64)
+    starts[: len(slabs)] = [s[0] for s in slabs]
+    stops[: len(slabs)] = [s[1] for s in slabs]
+    return starts, stops
 
 
 def plan_mesh_device(table, n_sub, stride, z_extent, slot_budget, align=2,
@@ -174,21 +291,13 @@ def plan_mesh_device(table, n_sub, stride, z_extent, slot_budget, align=2,
     if len(slabs) > MAX_DEVICE_SLABS:
         return None, None
 
-    s_pad = next(s for s in _S_LADDER if s >= len(slabs))
-    starts = np.full(s_pad, z_extent, np.int64)
-    stops = np.full(s_pad, z_extent, np.int64)
-    starts[: len(slabs)] = [s[0] for s in slabs]
-    stops[: len(slabs)] = [s[1] for s in slabs]
-    stri, bounds = _stage2(
-        vmin, vmax, n_sub,
-        torch.from_numpy(starts).to(table.device),
-        torch.from_numpy(stops).to(table.device),
-        len(slabs), s_pad, group,
-    )
-    bounds_h = bounds.cpu().numpy()
+    starts, stops = slab_rows(slabs, z_extent)
+    stri, bounds = plan_order(vmin, vmax, n_sub, starts, stops, len(slabs),
+                              group)
+    bounds_h = bounds.numpy()
 
     segments = []
-    for i in range(s_pad * 64):
+    for i in range(len(starts) * 64):
         r0, r1 = int(bounds_h[i]), int(bounds_h[i + 1])
         if r1 == r0:
             continue

@@ -2,15 +2,17 @@
 
 At group = 1 the order and segments must be bit-identical to
 obj2voxel_tpu.ops.plan.plan_mesh, as test_plan_device.py requires of the
-JAX device planner.  Stage 1's wrapper `plan_hist` is checked here too:
-its CUDA branch against a stand-in kernel library, and (marked `card`) its
-kernel against the plain `_stage1` on a card.  The JAX package is imported
+JAX device planner.  The wrappers of both stages are checked here too:
+`plan_hist` (stage 1) and `plan_order` (stage 2), each CUDA branch against
+a stand-in kernel library, and (marked `card`) the kernels against the
+plain `_stage1` and `_stage2` on a card.  The JAX package is imported
 only where a test compares with it, so the `card` tests also run where JAX
 is not installed:
 
     python -m pytest tests/test_torch_plan.py -m card --noconftest
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -127,10 +129,18 @@ def test_plan_histogram_is_int64_and_exact():
     np.testing.assert_array_equal(per_row.numpy(), want)
 
 
-@pytest.mark.parametrize("c", [0, 1, 2, 3, 4, 5, 1023, 1024, 1025, (1 << 31) - 1])
+# 2^k - 1, 2^k and 2^k + 1 for k up to 40, besides the first cases
+_LOG2_CASES = [0, 1, 2, 3, 4, 5, 1023, 1024, 1025, (1 << 31) - 1]
+_LOG2_CASES += sorted({(1 << k) + d for k in range(2, 41) for d in (-1, 0, 1)}
+                      - set(_LOG2_CASES))
+
+
+@pytest.mark.parametrize("c", _LOG2_CASES)
 def test_ceil_log2_exact(c):
+    # the plain version's frexp exponent against the bit length of c - 1,
+    # which plan_keys takes as 64 - __clzll(c - 1)
     k = int(tplan._ceil_log2(torch.tensor([c], dtype=torch.int64))[0])
-    want = 0 if c <= 1 else (c - 1).bit_length()
+    want = 0 if c <= 1 else 64 - (64 - (c - 1).bit_length())
     assert k == want
 
 
@@ -267,3 +277,287 @@ def test_plan_hist_kernel_matches_stage1_on_card(card, z_extent):
     assert _cuda.LAUNCHES["plan_hist"] == 1
     for name, g, w in zip(("per_row", "vmin", "vmax"), got, want):
         assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+# --- stage 2's wrapper: plan_order --------------------------------------------
+
+
+def _host_array(ptr, ctype, n):
+    """A numpy view of n `ctype`s at a host address (a CPU tensor's or a
+    numpy array's data)."""
+    if n == 0:
+        return np.zeros(0, np.dtype(ctype))
+    return np.ctypeslib.as_array((ctype * n).from_address(ptr))
+
+
+class _OrderLib:
+    """A stand-in for csrc/plan_keys.cu over CPU tensors: it records each
+    call and does what the kernels' contract says, warp by warp, so the
+    wrapper's layouts, partition and scan are held to the plain `_stage2`.
+    Keys come from the plain `_stage2_keys` (the arithmetic is the card's
+    to check); the layouts and the ranking are the model's."""
+
+    def __init__(self, keys_err=0, scatter_err=0):
+        self.keys_calls, self.scatter_calls = [], []
+        self.keys_err, self.scatter_err = keys_err, scatter_err
+
+    def o2v_plan_keys(self, vmin, vmax, keys, counts, n_act, n_sub, group,
+                      s_pad, n_slabs, starts, stops, units, chunk, stream):
+        lo = _host_array(starts, ctypes.c_int32, s_pad).copy()
+        hi = _host_array(stops, ctypes.c_int32, s_pad).copy()
+        self.keys_calls.append(dict(
+            n_act=n_act, n_sub=n_sub, group=group, s_pad=s_pad,
+            n_slabs=n_slabs, starts=lo, stops=hi, units=units, chunk=chunk))
+        if self.keys_err:
+            return self.keys_err
+        rows = n_act * group
+        to_t = lambda p: torch.from_numpy(
+            _host_array(p, ctypes.c_int32, rows * 3).reshape(rows, 3).copy())
+        key = tplan._stage2_keys(to_t(vmin), to_t(vmax), n_sub,
+                                 torch.from_numpy(lo.astype(np.int64)),
+                                 torch.from_numpy(hi.astype(np.int64)),
+                                 n_slabs, s_pad, group).numpy()
+        out = _host_array(keys, ctypes.c_uint16, s_pad * n_act)
+        out[:] = key.T.reshape(-1)  # slab-major
+        n_bins = s_pad * 64
+        cnt = _host_array(counts, ctypes.c_int32, n_bins * units).reshape(n_bins, units)
+        for u in range(units):
+            part = key[u * chunk:(u + 1) * chunk].reshape(-1)
+            cnt[:, u] = np.bincount(part, minlength=n_bins + 1)[:n_bins]
+        return 0
+
+    def o2v_plan_scatter(self, keys, counts, inclusive, order, n_act, s_pad,
+                         units, chunk, stream):
+        self.scatter_calls.append(dict(n_act=n_act, s_pad=s_pad, units=units,
+                                       chunk=chunk))
+        if self.scatter_err:
+            return self.scatter_err
+        n_bins = s_pad * 64
+        key = _host_array(keys, ctypes.c_uint16, s_pad * n_act).reshape(s_pad, n_act)
+        cnt = _host_array(counts, ctypes.c_int32, n_bins * units).reshape(n_bins, units)
+        inc = _host_array(inclusive, ctypes.c_int32, n_bins * units).reshape(n_bins, units)
+        total = int(inc[-1, -1])
+        out = _host_array(order, ctypes.c_int64, total)
+        for u in range(units):
+            run = inc[:, u] - cnt[:, u]  # the warp's first position a bin
+            for g in range(u * chunk, min((u + 1) * chunk, n_act)):
+                for s in range(s_pad):
+                    b = int(key[s, g])
+                    if b < n_bins:
+                        out[run[b]] = g
+                        run[b] += 1
+        return 0
+
+    def o2v_error_string(self, err):
+        return b"stand-in error"
+
+
+def _order_inputs(n_sub, n_pad, z_extent, n_slabs, s_pad, z_window=None, seed=21):
+    """(vmin, vmax) of a clamped random table and slabs like the planner's:
+    n_slabs even slabs tiling [0, z_extent) or the window, padded to s_pad
+    with z_extent."""
+    table = _clamped_table(n_sub, n_pad, 64, z_extent, seed)
+    _, vmin, vmax = tplan._stage1(table, n_sub, 64, z_extent)
+    z0, z1 = z_window or (0, z_extent)
+    cuts = np.linspace(z0, z1, n_slabs + 1).astype(np.int64)
+    starts, stops = tplan.slab_rows(list(zip(cuts[:-1], cuts[1:])), z_extent)
+    assert len(starts) == s_pad
+    return vmin, vmax, starts, stops
+
+
+def _order_branch(monkeypatch, lib, warps):
+    """`plan_order`'s CUDA branch on CPU tensors, `lib` in place of the
+    kernel library, at most `warps` warps."""
+    monkeypatch.setattr(_cuda, "lib", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(tplan, "ORDER_WARPS", warps)
+
+
+def _assert_prefix_equal(got, want):
+    (order, bounds), (w_order, w_bounds) = got, want
+    assert bounds.device.type == "cpu" and bounds.dtype == torch.int64
+    assert torch.equal(bounds, w_bounds)
+    total = int(w_bounds[-1])
+    assert order.dtype == torch.int64 and order.shape == (total,)
+    assert torch.equal(order, w_order[:total])
+
+
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("s_pad", [1, 2, 4, 8, 16, 32])
+def test_plan_order_wrapper_matches_stage2(monkeypatch, s_pad, group):
+    # n_sub not a multiple of the group: the last live group holds padding
+    n_sub, n_pad, z_extent = 1501, 2048, 96
+    n_slabs = s_pad // 2 + 1
+    vmin, vmax, starts, stops = _order_inputs(n_sub, n_pad, z_extent, n_slabs, s_pad)
+    lib = _OrderLib()
+    _order_branch(monkeypatch, lib, 5)
+    _cuda.reset_launches()
+    got = tplan._order_kernels(vmin, vmax, n_sub, starts, stops, n_slabs, group,
+                               vmin.device)
+    want = tplan._stage2(vmin, vmax, n_sub, torch.from_numpy(starts),
+                         torch.from_numpy(stops), n_slabs, s_pad, group)
+    _assert_prefix_equal(got, want)
+    assert _cuda.LAUNCHES["plan_keys"] == len(lib.keys_calls) == 1
+    assert _cuda.LAUNCHES["plan_scatter"] == len(lib.scatter_calls) == 1
+    assert sum(_cuda.LAUNCHES.values()) == 2
+    call = lib.keys_calls[0]
+    n_act = -(-n_sub // group)
+    assert (call["n_act"], call["n_sub"], call["group"], call["s_pad"],
+            call["n_slabs"]) == (n_act, n_sub, group, s_pad, n_slabs)
+    np.testing.assert_array_equal(call["starts"], starts)
+    np.testing.assert_array_equal(call["stops"], stops)
+    # every group in exactly one warp's range, each a whole number of rounds
+    units, chunk = call["units"], call["chunk"]
+    assert (units, chunk) == tplan.order_units(n_act)
+    assert 1 <= units <= 5 and chunk % 32 == 0
+    assert (units - 1) * chunk < n_act <= units * chunk
+    assert lib.scatter_calls[0] == dict(n_act=n_act, s_pad=s_pad, units=units,
+                                        chunk=chunk)
+
+
+@pytest.mark.parametrize("case", ["z-window", "all-dead", "one-group"])
+def test_plan_order_wrapper_edges(monkeypatch, case):
+    n_sub, n_pad, z_extent, s_pad, n_slabs = 700, 1024, 64, 4, 3
+    window = (16, 40) if case == "z-window" else None
+    vmin, vmax, starts, stops = _order_inputs(n_sub, n_pad, z_extent, n_slabs,
+                                              s_pad, window)
+    if case == "all-dead":
+        vmax[:, 0] = vmin[:, 0]  # no row spans x
+    if case == "one-group":
+        n_sub = 5  # fewer live rows than one group
+    lib = _OrderLib()
+    _order_branch(monkeypatch, lib, 3)
+    _cuda.reset_launches()
+    got = tplan._order_kernels(vmin, vmax, n_sub, starts, stops, n_slabs, 8,
+                               vmin.device)
+    want = tplan._stage2(vmin, vmax, n_sub, torch.from_numpy(starts),
+                         torch.from_numpy(stops), n_slabs, s_pad, 8)
+    _assert_prefix_equal(got, want)
+    total = int(want[1][-1])
+    assert (total == 0) is (case == "all-dead")
+    assert _cuda.LAUNCHES["plan_keys"] == 1
+    # no live incidence: nothing to scatter
+    assert _cuda.LAUNCHES["plan_scatter"] == int(total > 0)
+
+
+@pytest.mark.parametrize("n_act", [0, 1, 31, 32, 33, 4095 * 32, 4096 * 32 + 1,
+                                   1_249_924, 1 << 28])
+def test_order_units_cover_the_groups(n_act):
+    units, chunk = tplan.order_units(n_act)
+    assert 1 <= units <= tplan.ORDER_WARPS and chunk >= 32 and chunk % 32 == 0
+    assert (units - 1) * chunk < max(n_act, 1) <= units * chunk
+
+
+def test_plan_order_raises_on_a_failed_launch(monkeypatch):
+    vmin, vmax, starts, stops = _order_inputs(300, 512, 32, 2, 2)
+    for lib, what, keys_n in ((_OrderLib(keys_err=2), "plan_keys", 0),
+                              (_OrderLib(scatter_err=3), "plan_scatter", 1)):
+        _order_branch(monkeypatch, lib, 4)
+        _cuda.reset_launches()
+        with pytest.raises(RuntimeError, match=f"{what}: CUDA error"):
+            tplan._order_kernels(vmin, vmax, 300, starts, stops, 2, 1, vmin.device)
+        assert _cuda.LAUNCHES["plan_keys"] == keys_n
+        assert _cuda.LAUNCHES["plan_scatter"] == 0
+
+
+@pytest.mark.parametrize("bad", ["int64", "misaligned", "s_pad-3", "group-3",
+                                 "no-slabs"])
+def test_plan_order_refuses_what_the_kernels_do_not_take(monkeypatch, bad):
+    vmin, vmax, starts, stops = _order_inputs(300, 512, 32, 2, 2)
+    n_slabs, group = 2, 1
+    if bad == "int64":
+        vmin = vmin.to(torch.int64)
+    if bad == "misaligned":
+        vmin = torch.zeros(vmin.numel() + 1, dtype=torch.int32)[1:].view(-1, 3)
+    if bad == "s_pad-3":
+        starts, stops = np.append(starts, 32), np.append(stops, 32)
+    if bad == "group-3":
+        group = 3
+    if bad == "no-slabs":
+        n_slabs = 0
+    lib = _OrderLib()
+    _order_branch(monkeypatch, lib, 4)
+    with pytest.raises(ValueError, match="plan_order"):
+        tplan._order_kernels(vmin, vmax, 300, starts, stops, n_slabs, group,
+                             vmin.device)
+    assert not lib.keys_calls
+
+
+@pytest.mark.parametrize("group", [1, 8])
+def test_plan_order_takes_stage2_on_cpu(monkeypatch, group):
+    def no_library():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(_cuda, "lib", no_library)
+    vmin, vmax, starts, stops = _order_inputs(900, 1024, 64, 5, 8)
+    _cuda.reset_launches()
+    order, bounds = tplan.plan_order(vmin, vmax, 900, starts, stops, 5, group)
+    w_order, w_bounds = tplan._stage2(vmin, vmax, 900, torch.from_numpy(starts),
+                                      torch.from_numpy(stops), 5, 8, group)
+    # the plain order keeps its dead tail
+    assert torch.equal(order, w_order) and torch.equal(bounds, w_bounds)
+    assert order.shape == (1024 // group * 8,)
+    assert sum(_cuda.LAUNCHES.values()) == 0
+
+
+# --- the kernels on a card ----------------------------------------------------
+
+
+def _card_order(vmin, vmax, n_sub, starts, stops, n_slabs, group):
+    """plan_order's kernels against `_stage2` on the card: the order's live
+    prefix and the bounds equal to the last bit; one launch of each kernel
+    (none of the scatter without a live incidence)."""
+    s_pad = len(starts)
+    _cuda.reset_launches()
+    order, bounds = tplan.plan_order(vmin, vmax, n_sub, starts, stops, n_slabs,
+                                     group)
+    torch.cuda.synchronize()
+    w_order, w_bounds = tplan._stage2(
+        vmin, vmax, n_sub, torch.from_numpy(starts).to(vmin.device),
+        torch.from_numpy(stops).to(vmin.device), n_slabs, s_pad, group)
+    total = int(w_bounds[-1])
+    assert torch.equal(bounds, w_bounds.cpu())
+    assert order.shape == (total,) and order.dtype == torch.int64
+    assert torch.equal(order, w_order[:total])
+    assert _cuda.LAUNCHES["plan_keys"] == 1
+    assert _cuda.LAUNCHES["plan_scatter"] == int(total > 0)
+    return total
+
+
+@pytest.mark.card
+def test_plan_order_kernels_match_stage2_on_the_10m_sphere(card):
+    from obj2voxel_tpu_torch.bench import sphere_table
+    from obj2voxel_tpu_torch.ops.expand_bucket import slabs_from_rows
+
+    table_np, _, n_sub = sphere_table(10_000_000, 1024)
+    table = torch.from_numpy(table_np).to(card)
+    del table_np
+    per_row, vmin, vmax = tplan.plan_hist(table, n_sub, 1024, 1024)
+    slot_budget = 4 * min(engine.PAIR_TILE, engine.MAX_PASS_BUDGET)
+    slabs = slabs_from_rows(per_row.cpu().numpy(), 1024, 1024, slot_budget)
+    starts, stops = tplan.slab_rows(slabs, 1024)
+    assert len(starts) == 8
+    assert _card_order(vmin, vmax, n_sub, starts, stops, len(slabs), 8) > 0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("s_pad,group,case", [
+    (4, 1, "plain"), (4, 2, "plain"), (1, 8, "plain"), (32, 8, "plain"),
+    (32, 1, "plain"), (8, 8, "z-window"), (8, 8, "all-dead"),
+    (8, 8, "split-group"),
+])
+def test_plan_order_kernels_match_stage2_on_card(card, s_pad, group, case):
+    # n_sub not a multiple of 8 (split-group: of the group) ends the live rows
+    # inside a group, a warp's round and a warp's range
+    n_sub, n_pad, z_extent = 200_003, 1 << 18, 1024
+    n_slabs = s_pad // 2 + 1
+    window = (256, 640) if case == "z-window" else None
+    vmin, vmax, starts, stops = _order_inputs(n_sub, n_pad, z_extent, n_slabs,
+                                              s_pad, window, seed=31)
+    if case == "all-dead":
+        vmax[:, 1] = vmin[:, 1]
+    if case == "split-group":
+        n_sub = 200_005
+    total = _card_order(vmin.to(card), vmax.to(card), n_sub, starts, stops,
+                        n_slabs, group)
+    assert (total == 0) is (case == "all-dead")
