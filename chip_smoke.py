@@ -21,19 +21,20 @@ forms.
     python3 chip_smoke.py --phases 1,13
 
 Phases: 1 build (with ptxas's registers, stack frame, spills and shared
-memory of every kernel); 2 K1 (and its input-area and textured variants),
-3 K2, 4 K3, 16 their fusion combine_pack, 9 K4, 10 K5, 13 K6 against
-their plain versions; 5 untextured
+memory of every kernel); 2 K1, a launch of one pass (and its input-area,
+textured and wide_local variants; no ptxas spill and at most 64 registers
+untextured), 3 K2, 4 K3, 16 their fusion combine_pack, 9 K4, 10 K5, 13 K6
+against their plain versions; 5 untextured
 end to end (with the merge-runs route, supersampling 2 and input-area
 weights) and 11 textured, card against CPU; 6 the unit-cube closed forms;
 7 untextured, 12 textured, 14 merge-runs and 15 supersampled real size; 17
 batch (BASELINE config 5), 18 multi-device windows against one device, 19
 the C shim's capi_test on the card (9 also runs K4 through the public
 `clip_triangles_to_voxels_pallas`); 20 K1's batched form against its plain
-version and against single K1 launches on the sphere's batched passes (the
-counts and each pass's live rows: batches of 2 to 8, one with an empty pass,
-50 launches alike; no ptxas spill, at most 64 registers), then the sphere, the supersampled sphere
-and the batch under O2V_BATCH=8 against O2V_BATCH=1, timed in turns; 21
+version on the sphere's batched passes (the counts and each pass's live
+rows: batches of 2 to 8, one with an empty pass, 50 launches alike), then
+the sphere, the supersampled sphere and the batch under O2V_BATCH=8 against
+O2V_BATCH=1, timed in turns; 21
 the bench entry's device, pull and host modes on the 2M sphere and device
 and pull on the 10M sphere at 1024^3 (each mode's bench.py JSON line after
 `[bench]`); 22 config 4 against the CPU run's bytes, then from the host
@@ -126,11 +127,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 KERNELS = {
+    # one launch a dispatch of 1 to 8 passes (the TPU kernel's nbatch)
     "fused_pass": ("obj2voxel_tpu_torch/csrc/fused_pass.cu",
                    "obj2voxel_tpu/ops/pass_fused.py:251"),
-    # K1's batched form (the TPU kernel's nbatch > 1)
-    "fused_pass_batch": ("obj2voxel_tpu_torch/csrc/fused_pass.cu",
-                         "obj2voxel_tpu/ops/pass_fused.py:251"),
     "segment_combine": ("obj2voxel_tpu_torch/csrc/reduce_by_key.cu",
                         "obj2voxel_tpu/ops/combine_pallas.py:126"),
     "pack_exact": ("obj2voxel_tpu_torch/csrc/reduce_by_key.cu",
@@ -158,13 +157,12 @@ KERNELS = {
 # the kernels each main path must launch (sharded: BLEND in 2 windows, then
 # MAX in 3 under O2V_MERGE_RUNS=1; clip_helper: the public per-pair clip;
 # batched: the sphere, the supersampled sphere and the batch under
-# O2V_BATCH=8, whose lone remainders still run single K1 passes; bench: the
-# bench entry's modes; scale_2048 and scale_8192: configs 4 and 6 through
-# Instance).  Every stream plans on the device first, so every path but the
-# clip helper launches plan_hist, also where it then plans on the host
-# (scale_8192: more than MAX_DEVICE_SLABS slabs); the streams planned on the
-# device (config 5's stack too: 17 slabs) go on to stage 2's plan_keys and
-# plan_scatter
+# O2V_BATCH=8; bench: the bench entry's modes; scale_2048 and scale_8192:
+# configs 4 and 6 through Instance).  Every stream plans on the device
+# first, so every path but the clip helper launches plan_hist, also where it
+# then plans on the host (scale_8192: more than MAX_DEVICE_SLABS slabs); the
+# streams planned on the device (config 5's stack too: 17 slabs) go on to
+# stage 2's plan_keys and plan_scatter
 PLAN = ("plan_hist", "plan_keys", "plan_scatter")
 PATH_KERNELS = {
     "untextured": ("fused_pass", "combine_pack", *PLAN),
@@ -174,7 +172,7 @@ PATH_KERNELS = {
     "batch": ("fused_pass", "combine_pack", *PLAN),
     "sharded": ("fused_pass", "merge_runs", "combine_pack", *PLAN),
     "clip_helper": ("clip_pairs",),
-    "batched": ("fused_pass", "fused_pass_batch", "combine_pack", *PLAN),
+    "batched": ("fused_pass", "combine_pack", *PLAN),
     "bench": ("fused_pass", "combine_pack", *PLAN),
     "scale_2048": ("fused_pass", "combine_pack", *PLAN),
     "scale_8192": ("fused_pass", "combine_pack", "plan_hist"),
@@ -187,9 +185,6 @@ for path in ("textured", "batch", "sharded", "batched", "bench", "scale_2048",
     PATH_ABSENT[path] += ("clip_pairs",)
 for path in ("bench", "scale_2048", "scale_8192"):
     PATH_ABSENT[path] += ("merge_runs",)
-for path in PATH_KERNELS:
-    if "fused_pass_batch" not in PATH_KERNELS[path]:
-        PATH_ABSENT[path] += ("fused_pass_batch",)
 PATH_ABSENT["scale_8192"] += ("plan_keys", "plan_scatter")
 ALL_PHASES = set(range(1, 26))
 
@@ -331,10 +326,12 @@ def sphere_pass(table, aabb, pass_index):
 
 
 def compare_pass(got, want, what):
-    """K1 outputs: keys, count and order equal; weights to rtol 1e-6."""
+    """K1 outputs: count, then keys and order of the live pairs equal and
+    their weights to rtol 1e-6 (the rows past the count are undefined)."""
     n = int(want[5].item())
     if int(got[5].item()) != n:
         fail(f"{what}: count {int(got[5].item())} != {n}")
+    got, want = [x[:n] for x in got[:5]], [x[:n] for x in want[:5]]
     if not torch.equal(got[0], want[0]):
         fail(f"{what}: keys differ")
     err = 0.0
@@ -349,10 +346,16 @@ def phase_k1(stats):
     from obj2voxel_tpu_torch.ops.pass_fused import fused_pass, fused_pass_ref
 
     t0 = time.perf_counter()
+    # untextured: no spill, and at most 64 registers (4 blocks of 256
+    # threads an SM); textured: reported
+    regs, spills, line = ptxas_usage("fused_pass_kernelILb0E")
+    if spills or regs > 64:
+        fail(f"fused_pass_kernel<false>: {line}")
+    details = [f"ptxas {line}; textured {ptxas_usage('fused_pass_kernelILb1E')[2]}"]
     table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES)
     ordered, r0, z_lo, z_hi = sphere_pass(torch.from_numpy(table_np).cuda(), aabb,
                                           lambda n: n // 2)
-    details, err = [], 0.0
+    err = 0.0
     for expand in (1, 8, 64, BUDGET):
         n_rows = min(BUDGET // expand, ordered.shape[0] - r0)
         args = (ordered, r0, n_rows, 0, z_lo, z_hi, SPHERE_RES)
@@ -398,19 +401,19 @@ def phase_k1(stats):
         err = max(err, e)
     stats["fused_pass"]["max_abs_err"] = err
     details += k1_textured(stats)
-    phase("2 K1 fused_pass vs plain", t0, " ".join(details))
+    phase("2 K1 fused_pass (one pass a launch) vs plain", t0, " ".join(details))
 
 
 def compare_exact(got, want, what):
-    """K1 textured outputs: keys, count, order, rows and w, u, v equal to the
-    plain version's bit for bit (both round every float32 operation to
-    nearest, in the same order); returns the count."""
+    """K1 textured outputs: count, then the live pairs' keys, order, rows and
+    w, u, v equal to the plain version's bit for bit (both round every
+    float32 operation to nearest, in the same order); returns the count."""
     n = int(want[5].item())
     if int(got[5].item()) != n:
         fail(f"{what}: count {int(got[5].item())} != {n}")
     for g, w, name in zip(got, want, ("keys", "w", "u", "v", "rows")):
-        if g.dtype != w.dtype or not torch.equal(g.view(torch.int32),
-                                                 w.view(torch.int32)):
+        if g.dtype != w.dtype or not torch.equal(g[:n].view(torch.int32),
+                                                 w[:n].view(torch.int32)):
             fail(f"{what}: {name} differ from the plain version")
     return n
 
@@ -1566,19 +1569,13 @@ def compare_batch(got, want, what):
     return sum(counts)
 
 
-def batch_vs_plain_and_single(table, passes, what, **kw):
-    """One batched launch against its plain version and against one K1
-    launch a pass; returns its outputs and live pairs."""
-    from obj2voxel_tpu_torch.ops.pass_fused import (
-        fused_pass, fused_pass_batch, fused_pass_batch_ref,
-    )
+def batch_vs_plain(table, passes, what, **kw):
+    """One batched launch against its plain version; returns its outputs and
+    live pairs."""
+    from obj2voxel_tpu_torch.ops.pass_fused import fused_pass_batch, fused_pass_batch_ref
 
     got = fused_pass_batch(table, passes, **kw)
-    n = compare_batch(got, fused_pass_batch_ref(table, passes, **kw), f"{what} vs plain")
-    singles = [fused_pass(table, *p, **kw) for p in passes]
-    compare_batch(got, [torch.stack([o[j] for o in singles]) for j in range(5)]
-                  + [torch.cat([o[5] for o in singles])], f"{what} vs single")
-    return got, n
+    return got, compare_batch(got, fused_pass_batch_ref(table, passes, **kw), what)
 
 
 def ptxas_usage(kernel):
@@ -1840,30 +1837,22 @@ def phase_plan_order(stats):
 
 
 def phase_k1_batch(stats):
-    """K1's batched form bit for bit against its plain version and against
-    one K1 launch a pass, on the counts and each pass's live rows: the
-    sphere's batched launches of 8, 4 and 2 passes, with and without
-    ref_weights; one batch of each size 2 to 8; a batch holding a pass with
-    no live pair; 50 launches of one batch of 8, all equal.  Then its time
-    for 8 passes and for 1 beside single launches in turns, its plain
-    version and its bound; in its ptxas report no spill and at most 64
-    registers."""
+    """K1's batched form bit for bit against its plain version, on the counts
+    and each pass's live rows: the sphere's batched launches of 8, 4 and 2
+    passes, with and without ref_weights; one batch of each size 2 to 8; a
+    batch holding a pass with no live pair; 50 launches of one batch of 8,
+    all equal.  Then its time for 8 passes, its plain version and its
+    bound."""
     from obj2voxel_tpu_torch.ops.clip_pallas import pass_pairs
-    from obj2voxel_tpu_torch.ops.pass_fused import (
-        fused_pass, fused_pass_batch, fused_pass_batch_ref,
-    )
+    from obj2voxel_tpu_torch.ops.pass_fused import fused_pass_batch, fused_pass_batch_ref
 
     t0 = time.perf_counter()
-    # no spill, and at most 64 registers: 4 blocks of 256 threads an SM
-    regs, spills, line = ptxas_usage("fused_pass_batch_kernel")
-    if spills or regs > 64:
-        fail(f"fused_pass_batch_kernel: {line}")
     table_np, aabb = sphere_table(SPHERE_TRIS, SPHERE_RES)
     ordered, batches = sphere_batches(torch.from_numpy(table_np).cuda(), aabb)
-    details = [f"ptxas {line}"]
+    details = []
     for expand, budget, passes, n_slabs in batches:
         for ref in (False, True):
-            _, n = batch_vs_plain_and_single(
+            _, n = batch_vs_plain(
                 ordered, passes, f"K1 batch of {len(passes)} at expand {expand} "
                 f"ref_weights={ref}", expand=expand, budget=budget, ref_weights=ref)
             details.append(f"B{len(passes)} e{expand} {n_slabs} slabs"
@@ -1872,14 +1861,14 @@ def phase_k1_batch(stats):
     kw = dict(expand=expand, budget=budget)
     sizes = []
     for nb in range(2, 9):
-        _, n = batch_vs_plain_and_single(ordered, passes[-nb:], f"K1 batch of {nb}", **kw)
+        _, n = batch_vs_plain(ordered, passes[-nb:], f"K1 batch of {nb}", **kw)
         sizes.append(f"{nb}:{n}")
     details.append("sizes " + " ".join(sizes))
     # pass 3's rows in a z window that none of them reaches: 0 live pairs
     r0, n_rows, local_base, z_lo, z_hi, stride = passes[3]
     far = (0, 16) if z_lo >= SPHERE_RES // 2 else (SPHERE_RES - 16, SPHERE_RES)
     empty = [*passes[:3], (r0, n_rows, local_base, *far, stride), *passes[4:]]
-    got, n = batch_vs_plain_and_single(ordered, empty, "K1 batch with an empty pass", **kw)
+    got, n = batch_vs_plain(ordered, empty, "K1 batch with an empty pass", **kw)
     if got[5][3].item() != 0 or n == 0:
         fail(f"K1 batch with an empty pass: counts {got[5].tolist()}")
     details.append(f"empty pass 3 (z {far}): counts {got[5].tolist()}")
@@ -1888,15 +1877,9 @@ def phase_k1_batch(stats):
         compare_batch(fused_pass_batch(ordered, passes, **kw), first,
                       f"K1 batch of 8, launch {i + 1} of 50")
     details.append("50 launches of 8 equal")
-    batch_ms, single_ms, turns = in_turns(
-        lambda: fused_pass_batch(ordered, passes, **kw),
-        lambda: [fused_pass(ordered, *p, **kw) for p in passes])
-    one_ms, one_single_ms, one_turns = in_turns(
-        lambda: fused_pass_batch(ordered, passes[:1], **kw),
-        lambda: fused_pass(ordered, *passes[0], **kw))
     counts = first[5].tolist()
     stats["fused_pass_batch"].update(
-        ms=batch_ms, single_ms=single_ms, b1_ms=one_ms, b1_single_ms=one_single_ms,
+        ms=cuda_ms(lambda: fused_pass_batch(ordered, passes, **kw)),
         plain_ms=cuda_ms(lambda: fused_pass_batch_ref(ordered, passes, **kw), reps=1),
         library_ms=None, max_abs_err=0.0)
     # as phase 2 counts one pass: the 12 columns read of each row, 20 B per
@@ -1910,11 +1893,8 @@ def phase_k1_batch(stats):
         n_ops += clip_flops(tri, vox, valid, 3) + 28 * int(valid.sum())
         del tri, vox, valid
     bound(stats, "fused_pass_batch", n_bytes, n_ops)
-    phase("20 K1 fused_pass_batch vs plain and single K1 launches", t0,
-          "; ".join(details) + f"; 8 passes in {batch_ms:.4f} ms, 8 single "
-          f"launches {single_ms:.4f} ms in turns {[round(x, 4) for x in turns]}; "
-          f"1 pass in {one_ms:.4f} ms, 1 single launch {one_single_ms:.4f} ms in "
-          f"turns {[round(x, 4) for x in one_turns]}")
+    phase("20 K1 fused_pass_batch vs plain", t0, "; ".join(details) +
+          f"; 8 passes in {stats['fused_pass_batch']['ms']:.4f} ms")
 
 
 def slab_outputs(table, aabb, is_blend, **kw):
@@ -1952,8 +1932,8 @@ def batched_path(name, run, same):
     wave = dict(WAVE_STATS)
     peak = {8: torch.cuda.max_memory_allocated() / 2**30}
     check_path("batched", launches)
-    k1 = launches["fused_pass"] + launches["fused_pass_batch"]
-    if k1 >= wave["passes"] or k1 != wave["dispatches"]:
+    k1 = launches["fused_pass"]
+    if k1 >= wave["passes"] or k1 != wave["dispatches"] or not wave["batched"]:
         fail(f"batched {name}: {k1} K1 dispatches for {wave['passes']} passes "
              f"({launches}, {wave})")
     same(out)
@@ -2300,7 +2280,8 @@ def main():
             print(f"[ptxas] {line.strip()}", flush=True)
     phase("1 build", t0, f"nvcc {_cuda.BUILD_SECONDS} s -> {_cuda.library_path().name}")
 
-    stats = {name: {} for name in (*KERNELS, "fused_pass_textured")}
+    stats = {name: {} for name in (*KERNELS, "fused_pass_textured",
+                                   "fused_pass_batch")}
     by_path = {path: {name: 0 for name in KERNELS} for path in PATH_KERNELS}
     for num, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3), (16, phase_rbk),
                     (9, phase_k4), (10, phase_k5), (13, phase_k6),
@@ -2357,13 +2338,10 @@ def main():
          **{k: stats[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
     ]
-    # K1's textured variant: the same kernel source and launch count
-    line[0]["variants"] = {"textured": {k: stats["fused_pass_textured"][k]
-                                        for k in keys}}
-    # K1's batched form: 8 single K1 launches, and one pass alone against one
-    # K1 launch, each timed in turns beside it
-    line[1]["in_turns"] = {k: stats["fused_pass_batch"][k]
-                           for k in ("single_ms", "b1_ms", "b1_single_ms")}
+    # K1's textured variant and a launch of 8 passes: the same kernel source
+    # and launch count
+    line[0]["variants"] = {name: {k: stats[f"fused_pass_{name}"][k] for k in keys}
+                           for name in ("textured", "batch")}
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

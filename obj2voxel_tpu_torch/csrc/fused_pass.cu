@@ -1,14 +1,14 @@
-// K1: one voxelization pass -- slot expansion, rank decode, six-plane clip,
+// K1: voxelization passes -- slot expansion, rank decode, six-plane clip,
 // key and output channels, then ordered compaction of the live pairs.
 //
-// Replaces obj2voxel_tpu/ops/pass_fused.py `fused_pass_batch_pallas` /
-// `fused_pass_pallas` (kernel `_make_kernel`, with the in-kernel pack of
-// ops/pack_pallas.py `pack_block` + `flush_packed`), in both of its
-// variants: untextured (w, w*r, w*g, w*b) and `textured` (w, u, v: the
-// clipped piece's area-weighted UV centroid, for the texture sampling that
-// follows; the TPU kernel's fifth channel, zero there, carries the pair's
-// table row here, as int32 bits, so that the sampling finds its type, color
-// and texture).
+// Replaces obj2voxel_tpu/ops/pass_fused.py `fused_pass_batch_pallas` (and
+// `fused_pass_pallas`, its nbatch = 1 wrapper; kernel `_make_kernel`, with
+// the in-kernel pack of ops/pack_pallas.py `pack_block` + `flush_packed`),
+// in both of its variants: untextured (w, w*r, w*g, w*b) and `textured` (w,
+// u, v: the clipped piece's area-weighted UV centroid, for the texture
+// sampling that follows; the TPU kernel's fifth channel, zero there, carries
+// the pair's table row here, as int32 bits, so that the sampling finds its
+// type, color and texture).
 //
 // Bound on this card: arithmetic and latency, not bytes.  A slot reads one
 // 96-byte table row (shared by the `expand` slots of its row, so mostly from
@@ -21,49 +21,72 @@
 //   then queues, in slot order, the slots inside their row's AABB, and the
 //   block's first threads clip the queue: the slots past their AABB volume
 //   no longer hold lanes idle beside clipping ones, and whole warps past the
-//   queue skip the clip.  The results go back to their slots through shared
-//   memory, so the slot order (MAX ties) is unchanged;
+//   queue skip the clip;
 // - the clip stops at an empty polygon and skips a triangle that lies
 //   inside the voxel (both exact).
 // One thread per slot, row = slot >> log2(expand) (the TPU's MXU one-hot
 // expansion does not carry over).  The clip is the same operations in the
 // same order as ops/clip.py, with no FMA contraction.
 //
-// The TPU version compacts at a running offset carried by its sequential
-// grid.  Here the pass kernel writes slot-ordered rows plus per-tile live
-// counts, and the shared scan + ordered scatter (o2v_compact.cuh) produce an
-// exact dense prefix in slot order and the count.  Giant-triangle passes
-// (`wide_local`) decode the rank with exact integer div/mod, so they run
-// through this kernel too.
-//
 // With `ref_weights` (the TPU kernel's variant of the same name, the
 // engine's input-area weights) an occupied voxel weighs the area of the
 // whole table triangle instead of its clipped piece.
 //
-// The batched form (`o2v_fused_pass_batch`, the TPU kernel's grid
-// (nbatch, blocks)) runs up to kMaxBatch untextured passes of one shape
-// (expand, budget, stride, ref_weights; never `wide_local`) in one launch
-// that clips and compacts: no slot-ordered scratch, no scan or scatter
-// launch, no tail fill.  Each pass's (r0, n_rows, local_base, z_lo, z_hi)
-// come by value in a kernel parameter, copied to shared memory, so nothing
-// is uploaded, and each pass reads its own table rows in place (the TPU
-// version concatenates the row slices first).  The tile body is the single
-// pass's, so pass b's live pairs equal what one launch of `o2v_fused_pass`
-// gives for it, bit for bit.  The compaction is a decoupled look-back
-// (o2v_lookback.cuh) over tickets taken in pass-major order, one chain a
-// pass.  A tile publishes its live count as soon as it is clipped, but a
-// look-back right then would hold the block until every earlier tile is
-// clipped, and tiles' clip times vary: the slowest tile in flight would
-// set the pace of all.  So each block is persistent: it stages a clipped
-// tile's live rows, compacted, in shared memory and clips kBatchDefer more
-// tiles before it looks back for that tile's offset and writes its rows,
-// one contiguous run a channel.  Rows past a pass's count are not written
-// (the TPU kernel's pack mode leaves them undefined too).
+// One launch (`o2v_fused_pass`, the TPU kernel's grid (nbatch, blocks)) runs
+// up to kMaxBatch passes of one shape (expand, budget, stride, ref_weights,
+// textured, wide_local); a lone pass is a launch of one.  Each pass's (r0,
+// n_rows, local_base, z_lo, z_hi) come by value in a kernel parameter,
+// copied to shared memory, so nothing is uploaded, and each pass reads its
+// own table rows in place (the TPU version concatenates the row slices
+// first).  Giant-triangle passes (`wide_local`, one a launch) decode the
+// rank with exact integer div/mod.
+//
+// The TPU version compacts at a running offset carried by its sequential
+// grid.  Here the compaction is a decoupled look-back (o2v_lookback.cuh)
+// over tickets taken in pass-major order, one chain a pass, so the live
+// pairs come out in slot order with an exact count (MAX ties downstream
+// depend on that order).  A tile publishes its live count as soon as it is
+// clipped, but a look-back right then would hold the block until every
+// earlier tile is clipped, and tiles' clip times vary: the slowest tile in
+// flight would set the pace of all.  So each block is persistent: it stages
+// a clipped tile's live rows, compacted, in shared memory and clips
+// kBatchDefer more tiles before it looks back for that tile's offset and
+// writes its rows, one contiguous run a channel.  Rows past a pass's count
+// are not written (the TPU kernel's pack mode leaves them undefined too).
+#include <atomic>
+
 #include "o2v_clip.cuh"
-#include "o2v_compact.cuh"
 #include "o2v_lookback.cuh"
 
+#define O2V_INV 2147483647
+
 namespace {
+
+// Slots a block clips at a time: one a thread.
+constexpr int COMPACT_TILE = 256;
+
+// Exclusive rank of `live` among the threads of a COMPACT_TILE block; the
+// block's live total lands in `total`.  Every thread of the block must call.
+__device__ __forceinline__ int block_rank(bool live, int* s_warp, int& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned mask = __ballot_sync(0xffffffffu, live);
+  const int rank = __popc(mask & ((1u << lane) - 1u));
+  if (lane == 0) s_warp[warp] = __popc(mask);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int i = 0; i < COMPACT_TILE / 32; ++i) {
+      const int c = s_warp[i];
+      s_warp[i] = acc;
+      acc += c;
+    }
+    s_warp[COMPACT_TILE / 32] = acc;
+  }
+  __syncthreads();
+  total = s_warp[COMPACT_TILE / 32];
+  return s_warp[warp] + rank;
+}
 
 // Area of the whole triangle, 0.5 * |e1 x e2| (pass_fused.py:191-197, in
 // its order): the weight of every occupied voxel under input-area weights.
@@ -143,25 +166,18 @@ struct PassTile {
   int r0, n_rows, local_base, z_lo, z_hi, tile;
 };
 
-// Tile `pt.tile` of one pass: (key, o0..o3), (INVALID, 0) where dead.
-// With TO_SLOTS (steps 1-3) each thread gets its own slot's result; without
-// (steps 1-2) thread i gets the result of the tile's i-th queued slot, in
-// slot order, and threads past the queue (INVALID, 0): the live pairs come
-// out in the same order either way.  Dynamic shared memory: the polygon
-// scratch of every thread, then (step 3, after the clip) the queue's
-// results, 5 words a queue entry.  Every thread of the block must call;
-// `s_warp` is block_rank's.  `pt` is read where each field is used: the
-// batched form keeps it in shared memory, so that no register holds it
-// across the clip.
-template <bool TEXTURED, bool TO_SLOTS>
+// Tile `pt.tile` of one pass: thread i gets the result (key, o0..o3) of the
+// tile's i-th queued slot and threads past the queue (INVALID, 0), so the
+// live pairs come out in slot order.  Dynamic shared memory: the polygon
+// scratch of every thread.  Every thread of the block must call; `s_warp`
+// is block_rank's.  `pt` lives in shared memory and is read where each
+// field is used, so that no register holds it across the clip.
+template <bool TEXTURED>
 __device__ __forceinline__ void pass_tile_body(
     const float* __restrict__ table, int n_table_rows, const PassTile& pt,
     int stride, int log2_expand, int budget, int wide_local, int ref_weights,
     int* s_warp, int& key, float& o0, float& o1, float& o2, float& o3) {
   constexpr int NCH = kChannels<TEXTURED>;
-  static_assert(pass_smem_bytes<TEXTURED>() >=
-                    5 * COMPACT_TILE * static_cast<int>(sizeof(float)),
-                "the result staging reuses the polygon scratch");
   extern __shared__ float s_dyn[];
   __shared__ int s_slot[COMPACT_TILE];       // queue: slot within the tile
   __shared__ float s_vox[3][COMPACT_TILE];   // queue: the slot's voxel
@@ -216,12 +232,11 @@ __device__ __forceinline__ void pass_tile_body(
         a, vx, vy, vz, PolyScratch<NCH, COMPACT_TILE>{s_dyn + tid});
     float num_u, num_v;
     const float area = fan_area<NCH>(a, cnt, num_u, num_v);
-    if constexpr (!TO_SLOTS) {
+    {
       // rebuild the row's 64-bit pointer from its 32-bit index, through a
       // copy the compiler cannot see into: kept live across the clip, the
-      // pointer costs the registers that take the batched kernel from 4
-      // blocks an SM to 3 (ptxas: 70 registers without this, 62 with it;
-      // scripts/ab_batched_pass.py)
+      // pointer costs the registers that take the untextured kernel from 4
+      // blocks an SM to 3 (ptxas: 70 registers without this, 62 with it)
       int r = row;
       asm volatile("" : "+r"(r));
       t = table + static_cast<size_t>(r) * 24;
@@ -245,85 +260,31 @@ __device__ __forceinline__ void pass_tile_body(
       }
     }
   }
-  if constexpr (!TO_SLOTS) return;
-  __syncthreads();  // every polygon scratch access is done
-
-  // 3. the queue's results back to their slots, through shared memory
-  int* st_key = reinterpret_cast<int*>(s_dyn);
-  float* st = s_dyn + COMPACT_TILE;
-  if (tid < n_queue) {
-    st_key[tid] = key;
-    st[tid] = o0;
-    st[COMPACT_TILE + tid] = o1;
-    st[2 * COMPACT_TILE + tid] = o2;
-    st[3 * COMPACT_TILE + tid] = o3;
-  }
-  __syncthreads();
-  key = O2V_INV;
-  o0 = o1 = o2 = o3 = 0.0f;
-  if (queued) {
-    key = st_key[q];
-    o0 = st[q];
-    o1 = st[COMPACT_TILE + q];
-    o2 = st[2 * COMPACT_TILE + q];
-    o3 = st[3 * COMPACT_TILE + q];
-  }
-}
-
-// Tile blockIdx.x of one pass: its slot-ordered rows into keys and c0..c3
-// and its live count into tile_counts[blockIdx.x].
-template <bool TEXTURED>
-__global__ void __launch_bounds__(COMPACT_TILE)
-fused_pass_kernel(const float* __restrict__ table, int n_table_rows, int r0,
-                  int n_rows, int local_base, int z_lo, int z_hi, int stride,
-                  int log2_expand, int budget, int wide_local,
-                  int ref_weights, int* __restrict__ keys,
-                  float* __restrict__ c0, float* __restrict__ c1,
-                  float* __restrict__ c2, float* __restrict__ c3,
-                  int* __restrict__ tile_counts) {
-  __shared__ int s_warp[COMPACT_TILE / 32 + 1];
-  int key;
-  float o0, o1, o2, o3;
-  const PassTile pt{r0, n_rows, local_base, z_lo, z_hi,
-                    static_cast<int>(blockIdx.x)};
-  pass_tile_body<TEXTURED, true>(table, n_table_rows, pt, stride,
-                                 log2_expand, budget, wide_local, ref_weights,
-                                 s_warp, key, o0, o1, o2, o3);
-  const int s = blockIdx.x * COMPACT_TILE + threadIdx.x;
-  if (s < budget) {
-    keys[s] = key;
-    c0[s] = o0;
-    c1[s] = o1;
-    c2[s] = o2;
-    c3[s] = o3;
-  }
-  int total;
-  block_rank(key != O2V_INV, s_warp, total);
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
 }
 
 constexpr int kMaxBatch = 8;
 
-// The per-pass scalars of a batched launch, a kernel parameter.
+// The per-pass scalars of a launch, a kernel parameter.
 struct PassBatch {
   int r0[kMaxBatch], n_rows[kMaxBatch], local_base[kMaxBatch];
   int z_lo[kMaxBatch], z_hi[kMaxBatch];
 };
 
-// Clipped tiles a block of the batched form holds, staged, before it looks
-// back for the oldest one's offset; it stages one more, the newest.
+// Clipped tiles a block holds, staged, before it looks back for the oldest
+// one's offset; it stages one more, the newest.
 constexpr int kBatchDefer = 2;
 constexpr int kStages = kBatchDefer + 1;
 // a staged tile: its live rows in slot order, key then c0..c3
 constexpr int kStageWords = 5 * COMPACT_TILE;
 
-__host__ __device__ constexpr int batch_smem_bytes() {
-  return pass_smem_bytes<false>() +
+template <bool TEXTURED>
+__host__ __device__ constexpr int kernel_smem_bytes() {
+  return pass_smem_bytes<TEXTURED>() +
          kStages * kStageWords * static_cast<int>(sizeof(float));
 }
 
-// The outputs of a batched launch: (passes, budget) key and c0..c3, the
-// (passes,) counts, and the look-back status words, n_tiles a pass.
+// The outputs of a launch: (passes, budget) key and c0..c3, the (passes,)
+// counts, and the look-back status words, n_tiles a pass.
 struct BatchOut {
   int* keys;
   float* c[4];
@@ -362,21 +323,21 @@ __device__ __forceinline__ void batch_resolve(const BatchOut& out,
 // stages its live rows compacted, then resolves its oldest staged tile once
 // it holds more than kBatchDefer.  Every ticket taken is published after one
 // clip with no wait in between, so every look-back ends.  The queue is in
-// slot order, so the clipping threads rank and stage their own results: the
-// single pass's step 3 (results back to their slots) is not needed.  The
-// block's state (ticket, pass, tile, ring) lives in shared memory and is read
-// where it is used, so that few registers live across the clip: 4 blocks an
-// SM fit, as for the single pass (at most 64 registers; chip_smoke.py phase
-// 20 fails above that).  A minimum of 4 blocks in the launch bounds would
-// hold it there too, but ptxas then trades speed for registers it does not
-// need (scripts/ab_batched_pass.py --variant min_blocks=4).
+// slot order, so the clipping threads rank and stage their own results.
+// The block's state (ticket, pass, tile, ring) lives in shared memory and is
+// read where it is used, so that few registers live across the clip: 4
+// blocks an SM fit untextured (at most 64 registers; chip_smoke.py phase 2
+// fails above that), 3 textured (80 registers, 70 KB of shared memory).  A
+// minimum of 4 blocks in the launch bounds would hold the untextured kernel
+// there too, but ptxas then trades speed for registers it does not need.
+template <bool TEXTURED>
 __global__ void __launch_bounds__(COMPACT_TILE)
-fused_pass_batch_kernel(const float* __restrict__ table, int n_table_rows,
-                        const PassBatch p, int n_tiles, int n_tickets,
-                        int stride, int log2_expand, int budget,
-                        int ref_weights, const BatchOut out, int* ticket) {
+fused_pass_kernel(const float* __restrict__ table, int n_table_rows,
+                  const PassBatch p, int n_tiles, int n_tickets, int stride,
+                  int log2_expand, int budget, int wide_local, int ref_weights,
+                  const BatchOut out, int* ticket) {
   extern __shared__ float s_dyn[];
-  float* const s_stage = s_dyn + pass_smem_bytes<false>() / sizeof(float);
+  float* const s_stage = s_dyn + pass_smem_bytes<TEXTURED>() / sizeof(float);
   __shared__ PassBatch s_p;
   __shared__ PassTile s_pt;  // the pass and tile of the block's ticket
   __shared__ int s_ticket, s_pass, s_offset;
@@ -405,10 +366,9 @@ fused_pass_batch_kernel(const float* __restrict__ table, int n_table_rows,
     if (s_ticket >= n_tickets) break;
     int key;
     float o[4];
-    // the queue's results stay with the clipping threads, in slot order
-    pass_tile_body<false, false>(table, n_table_rows, s_pt, stride,
-                                 log2_expand, budget, 0, ref_weights, s_warp,
-                                 key, o[0], o[1], o[2], o[3]);
+    pass_tile_body<TEXTURED>(table, n_table_rows, s_pt, stride, log2_expand,
+                             budget, wide_local, ref_weights, s_warp, key,
+                             o[0], o[1], o[2], o[3]);
     const int head = s_head;  // read before block_rank's barriers
     const bool live = key != O2V_INV;
     int total;
@@ -444,68 +404,71 @@ fused_pass_batch_kernel(const float* __restrict__ table, int n_table_rows,
   }
 }
 
+// Blocks of a persistent launch on the current device: as many as fit on
+// the card at once.  Found on the variant's first launch on a device, when
+// the shared memory it needs is granted too; both hold for the process, so
+// later launches make no query.
+constexpr int kMaxDevices = 64;
+
 template <bool TEXTURED>
-cudaError_t launch_pass(const float* table, int n_table_rows, int r0,
-                        int n_rows, int local_base, int z_lo, int z_hi,
-                        int stride, int log2_expand, int budget,
-                        int wide_local, int ref_weights, int* s_keys,
-                        float* s0, float* s1, float* s2, float* s3,
-                        int* tile_counts, cudaStream_t stream) {
-  constexpr int smem = pass_smem_bytes<TEXTURED>();
-  // above 48 KB a block's dynamic shared memory must be asked for
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_pass_kernel<TEXTURED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t resident_blocks(int& grid) {
+  static std::atomic<int> cache[kMaxDevices];
+  int device;
+  cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
-  const int n_tiles = (budget + COMPACT_TILE - 1) / COMPACT_TILE;
-  fused_pass_kernel<TEXTURED><<<n_tiles, COMPACT_TILE, smem, stream>>>(
-      table, n_table_rows, r0, n_rows, local_base, z_lo, z_hi, stride,
-      log2_expand, budget, wide_local, ref_weights, s_keys, s0, s1, s2, s3,
-      tile_counts);
+  if (device < kMaxDevices && (grid = cache[device].load()) > 0) {
+    return cudaSuccess;
+  }
+  constexpr int smem = kernel_smem_bytes<TEXTURED>();
+  int n_sm, per_sm;
+  // above 48 KB a block's dynamic shared memory must be asked for
+  if ((e = cudaFuncSetAttribute(fused_pass_kernel<TEXTURED>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                  device)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fused_pass_kernel<TEXTURED>, COMPACT_TILE, smem)) !=
+          cudaSuccess) {
+    return e;
+  }
+  grid = n_sm * per_sm;
+  if (device < kMaxDevices) cache[device].store(grid);
+  return cudaSuccess;
+}
+
+template <bool TEXTURED>
+cudaError_t launch(const float* table, int n_table_rows, const PassBatch& p,
+                   int n_tiles, int n_tickets, int stride, int log2_expand,
+                   int budget, int wide_local, int ref_weights,
+                   const BatchOut& out, int* ticket, cudaStream_t stream) {
+  int grid;
+  const cudaError_t e = resident_blocks<TEXTURED>(grid);
+  if (e != cudaSuccess) return e;
+  if (n_tickets < grid) grid = n_tickets;
+  constexpr int smem = kernel_smem_bytes<TEXTURED>();
+  fused_pass_kernel<TEXTURED><<<grid, COMPACT_TILE, smem, stream>>>(
+      table, n_table_rows, p, n_tiles, n_tickets, stride, log2_expand, budget,
+      wide_local, ref_weights, out, ticket);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Outputs (key, c0..c3): untextured (w, w*r, w*g, w*b); textured (w, u, v,
-// the table row's int32 bits).
+// n_pass passes of one shape in one launch.  `scal` (host) holds (r0,
+// n_rows, local_base, z_lo, z_hi) for each pass; every output is (n_pass,
+// budget) and the counts (n_pass,): untextured (key, w, w*r, w*g, w*b),
+// textured (key, w, u, v, the table row's int32 bits); rows past a pass's
+// count are not written.  `status` (8-byte aligned) holds n_pass * tiles
+// look-back status words and then the ticket; they are zeroed here, before
+// the pass.
 extern "C" int o2v_fused_pass(int* keys_out, float* c0_out, float* c1_out,
-                              float* c2_out, float* c3_out, int* count_out,
-                              int* s_keys, float* s0, float* s1, float* s2,
-                              float* s3, int* tile_counts, int* tile_offsets,
-                              const float* table, int n_table_rows, int r0,
-                              int n_rows, int local_base, int z_lo, int z_hi,
+                              float* c2_out, float* c3_out, int* counts_out,
+                              void* status, const float* table,
+                              int n_table_rows, const int* scal, int n_pass,
                               int stride, int log2_expand, int budget,
                               int wide_local, int ref_weights, int textured,
                               void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const cudaError_t e =
-      textured ? launch_pass<true>(table, n_table_rows, r0, n_rows,
-                                   local_base, z_lo, z_hi, stride,
-                                   log2_expand, budget, wide_local,
-                                   ref_weights, s_keys, s0, s1, s2, s3,
-                                   tile_counts, stream)
-               : launch_pass<false>(table, n_table_rows, r0, n_rows,
-                                    local_base, z_lo, z_hi, stride,
-                                    log2_expand, budget, wide_local,
-                                    ref_weights, s_keys, s0, s1, s2, s3,
-                                    tile_counts, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(compact_from_tile_counts(
-      s_keys, s0, s1, s2, s3, keys_out, c0_out, c1_out, c2_out, c3_out,
-      count_out, tile_counts, tile_offsets, budget, 1, stream));
-}
-
-// n_pass untextured passes of one shape in one launch.  `scal` (host) holds
-// (r0, n_rows, local_base, z_lo, z_hi) for each pass; every output is
-// (n_pass, budget) and the counts (n_pass,); rows past a pass's count are
-// not written.  `status` (8-byte aligned) holds n_pass * tiles look-back
-// status words and then the ticket; they are zeroed here, before the pass.
-extern "C" int o2v_fused_pass_batch(
-    int* keys_out, float* c0_out, float* c1_out, float* c2_out,
-    float* c3_out, int* counts_out, void* status, const float* table,
-    int n_table_rows, const int* scal, int n_pass, int stride,
-    int log2_expand, int budget, int ref_weights, void* stream_ptr) {
   if (n_pass < 1 || n_pass > kMaxBatch) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -521,28 +484,17 @@ extern "C" int o2v_fused_pass_batch(
   const int n_tiles = (budget + COMPACT_TILE - 1) / COMPACT_TILE;
   const int n_tickets = n_pass * n_tiles;
   unsigned long long* words = static_cast<unsigned long long*>(status);
-  cudaError_t e = cudaMemsetAsync(
+  const cudaError_t e = cudaMemsetAsync(
       words, 0, (n_tickets + 1) * sizeof(unsigned long long), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  constexpr int smem = batch_smem_bytes();
-  e = cudaFuncSetAttribute(fused_pass_batch_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // persistent: as many blocks as fit on the card at once
-  int device, n_sm, per_sm;
-  if ((e = cudaGetDevice(&device)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                  device)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_pass_batch_kernel, COMPACT_TILE, smem)) !=
-          cudaSuccess) {
-    return static_cast<int>(e);
-  }
-  const int grid = n_tickets < n_sm * per_sm ? n_tickets : n_sm * per_sm;
   const BatchOut out{keys_out, {c0_out, c1_out, c2_out, c3_out}, counts_out,
                      words};
-  fused_pass_batch_kernel<<<grid, COMPACT_TILE, smem, stream>>>(
-      table, n_table_rows, p, n_tiles, n_tickets, stride, log2_expand, budget,
-      ref_weights, out, reinterpret_cast<int*>(words + n_tickets));
-  return static_cast<int>(cudaGetLastError());
+  int* ticket = reinterpret_cast<int*>(words + n_tickets);
+  return static_cast<int>(
+      textured ? launch<true>(table, n_table_rows, p, n_tiles, n_tickets,
+                              stride, log2_expand, budget, wide_local,
+                              ref_weights, out, ticket, stream)
+               : launch<false>(table, n_table_rows, p, n_tiles, n_tickets,
+                               stride, log2_expand, budget, wide_local,
+                               ref_weights, out, ticket, stream));
 }

@@ -8,13 +8,14 @@ The port of obj2voxel_tpu/engine.py's single-device path:
           K2's segmented combine and K3's exact compaction in one pass)
           -> finalize to (xyz, ARGB) per z-slab
 
-A pass is one of two shapes, chosen per mesh as the JAX package chooses
-(obj2voxel_tpu/engine.py:1250-1251, :503): untextured meshes take K1
-(ops/pass_fused.py: expansion, rank decode, clip, key, premultiply, ordered
-compaction in one kernel); a mesh whose texture pool holds more than one
-pixel takes `_textured_pass` (K1's textured variant: the same pass with
-UVs, each live pair carrying its table row, then texture sampling in torch
-ops).  Both return the live pairs in slot order.
+Every pass runs K1 (ops/pass_fused.py: expansion, rank decode, clip, key,
+premultiply, ordered compaction in one kernel), which returns its live pairs
+in slot order and their count; nothing reads a pass's rows past its count.
+A mesh whose texture pool holds more than one pixel takes K1's textured
+variant (the JAX package's choice, obj2voxel_tpu/engine.py:1250-1251,
+:503): the same pass with UVs, each live pair carrying its table row, and
+once the counts are read back, `_textured_pass` samples and premultiplies
+the live pairs' colors in torch ops.
 With input-area weights (`input_area_weights`, or O2V_WEIGHT_MODE=input_area)
 an occupied voxel weighs its whole triangle's area instead of the clipped
 piece's (obj2voxel_tpu/engine.py:488-501).
@@ -46,7 +47,7 @@ default, as in the JAX package).  With O2V_BATCH=B > 1, on a CUDA device
 passes of a wave's multi-pass slabs that are not `wide_local` and whose
 budget is a multiple of BATCH_BLOCK group by (expand, budget), in sorted
 order, into launches of K1's batched form (`fused_pass_batch`) of 8, 4 or
-2 passes up to B; a lone remainder runs as a single pass.  Passes of
+2 passes up to B; a lone remainder runs as a launch of one pass.  Passes of
 different slabs batch together.  Each slab still merges its passes in pass
 order, so the output is the unbatched one, byte for byte.  `WAVE_STATS`
 counts the last call's passes, dispatches and batched passes, its slabs,
@@ -245,21 +246,13 @@ def plan_fold_chunks(sizes, cap):
     return groups
 
 
-def _textured_pass(table, pool, r0, n_rows, local_base, z_lo, z_hi, stride,
-                   *, expand, budget, wide_local, ref_weights=False):
-    """One pass of a textured mesh (obj2voxel_tpu/engine.py:410-524, the
-    unfused branch of `_bucket_pass`), with `fused_pass`'s contract: K1's
-    textured variant clips the pass's slots with their UVs and compacts the
-    live pairs in slot order, each with its table row; the pairs' colors are
-    sampled from the pool by the rows' type, color and texture id and
-    premultiplied.  `ref_weights` weighs each occupied voxel by its whole
-    triangle's area.  `table` is the plan-ordered (M, 24) table.  Returns
-    (key, w, wr, wg, wb (budget,), count (1,) int32); rows past the count
-    sample row 0 at weight 0, so they stay (INVALID, 0)."""
-    key, w, u, v, row, count = fused_pass(
-        table, r0, n_rows, local_base, z_lo, z_hi, stride, expand=expand,
-        budget=budget, wide_local=wide_local, ref_weights=ref_weights,
-        textured=True)
+def _textured_pass(table, pool, w, u, v, row):
+    """The colors of a textured pass's live pairs (obj2voxel_tpu/engine.py:
+    410-524, the unfused branch of `_bucket_pass`): K1's textured variant
+    gave each pair its weight, UV centroid and table row; its color is
+    sampled from the pool by the row's type, color and texture id and
+    premultiplied.  `table` is the plan-ordered (M, 24) table; w, u, v, row
+    are the pass's first `count` rows.  Returns (w, wr, wg, wb)."""
     # columns 16:21 (type, r, g, b, texture id) of each pair's row
     attrs = table[:, 16:21].index_select(0, row).T
     colors = sample_pair_colors_uv(
@@ -272,19 +265,13 @@ def _textured_pass(table, pool, r0, n_rows, local_base, z_lo, z_hi, stride,
     wr, wg, wb = u, v, row.view(torch.float32)
     for c, out in enumerate((wr, wg, wb)):
         torch.mul(w, colors[:, c], out=out)
-    return (key, w, wr, wg, wb, count)
-
-
-def _combine_presorted(sorted_keys, chans, is_blend):
-    """`combine_pack` (K2 and K3 in one pass) over a key-sorted stream:
-    compacted unique (keys, chans, count (1,)) in key order."""
-    return combine_pack(sorted_keys, chans, is_blend)
+    return w, wr, wg, wb
 
 
 def _merge_keys(keys, chans, is_blend):
     """Stable sort -> `combine_pack`: compacted unique (keys, chans, count
     (1,)) in slab-local key order."""
-    return _combine_presorted(*sort_channels(keys, chans), is_blend)
+    return combine_pack(*sort_channels(keys, chans), is_blend)
 
 
 def _cat(runs):
@@ -340,8 +327,8 @@ def _merge_slab(live, n_passes, z_lo, *, is_blend, stride, do_down, merge_runs):
         if len(live) > 1:
             offsets, _ = plan_runs([x[0].shape[0] for x in live])
             keys, chans = merge_sorted_runs(keys, chans, offsets)
-        return _finalize_merge(*_combine_presorted(keys, chans, is_blend),
-                               z_lo, stride)
+        return _finalize_merge(*combine_pack(keys, chans, is_blend), z_lo,
+                               stride)
     return _finalize_merge(*_merge_keys(keys, chans, is_blend), z_lo, stride,
                            do_down)
 
@@ -488,9 +475,10 @@ def stream_slabs(
     space.  `aabb_host` is the host (vmin, vmax) pair of per-triangle voxel
     AABBs (vmax exclusive, x/y grid-clamped) for the first len(vmin) rows.
     `pool` is the device texture pool (pixels, meta) of ops/color.upload_pool
-    or None.  Like the JAX package, every pass takes `_textured_pass` when
-    the pool holds more than one pixel and K1 otherwise: a pool of one 1x1
-    texture takes K1, so its textured triangles get their flat color.
+    or None.  Like the JAX package, every pass takes K1's textured variant
+    and `_textured_pass` when the pool holds more than one pixel and plain K1
+    otherwise: a pool of one 1x1 texture takes plain K1, so its textured
+    triangles get their flat color.
 
     `do_down` halves each axis in the merge (the grid is sampled at stride,
     the output is stride // 2).  `merge_runs` (default: O2V_MERGE_RUNS=1)
@@ -532,14 +520,6 @@ def stream_slabs(
 
     order = segments = None
     if os.environ.get("O2V_HOST_PLAN") != "1":
-        if timing:
-            # the JAX package's slab-count estimate from a strided sample
-            step = max(1, n_sub >> 18)
-            ext = (vmax_h[::step].astype(np.int64)
-                   - vmin_h[::step].astype(np.int64)).clip(min=0)
-            est = float(ext.prod(axis=1, dtype=np.int64).sum()) * step
-            print(f"[o2v-timing]   hint {(time.perf_counter() - t0) * 1000:.0f}ms"
-                  f" (est {est:.3g} -> {int(est / slot_budget) + 1})", flush=True)
         WAVE_STATS["hist_smem"] = int(tri_table.device.type == "cuda"
                                       and hist_in_smem(z_extent))
         order, segments = plan_mesh_device(
@@ -573,15 +553,14 @@ def stream_slabs(
                                     wave_cap, batch_cap if can_batch else 1):
         # one wave: every pass of its slabs, then ONE counts read-back
         t1 = time.perf_counter() if timing else 0.0
-        # per slab and pass: (key, w, r, g, b) and its index in the counts
+        # per slab and pass: K1's (key, 4 channels) and its index in the counts
         handles = [[None] * n for _, _, n in slabs]
         parts, n_counts, n_batched = [], 0, 0  # count tensors in dispatch order
         for expand, budget, wide, items in dispatches:
             kw = dict(expand=expand, budget=budget, ref_weights=ref_weights)
             if len(items) == 1:
-                desc = items[0][2]
-                out = (_textured_pass(table, pool, *desc, wide_local=wide, **kw)
-                       if textured else fused_pass(table, *desc, wide_local=wide, **kw))
+                out = fused_pass(table, *items[0][2], wide_local=wide,
+                                 textured=textured, **kw)
                 rows = [out[:5]]
             else:
                 out = fused_pass_batch(table, [d for _, _, d in items], **kw)
@@ -613,12 +592,15 @@ def stream_slabs(
         for (z_lo, z_hi, n_passes), slab_handles in zip(slabs, handles):
             # the slab's passes in pass order, whatever their dispatch order
             live = []
-            for (key, w, r, g, b), ci in slab_handles:
+            for (key, *chans), ci in slab_handles:
                 c = counts[ci]
                 if _dbg.DEBUG:
                     _dbg.check_count(c, key.shape[0], "pass")
                 if c:
-                    live.append((key[:c], (w[:c], r[:c], g[:c], b[:c])))
+                    chans = tuple(x[:c] for x in chans)
+                    if textured:
+                        chans = _textured_pass(table, pool, *chans)
+                    live.append((key[:c], chans))
             # a batched launch's buffer lives until its last slab merges
             slab_handles.clear()
             if live:

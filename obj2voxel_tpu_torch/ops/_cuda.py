@@ -34,15 +34,14 @@ NVCC_FLAGS = [
 #: Sentinel key of dead rows; sorts to the end (csrc O2V_INV).
 INVALID_KEY = (1 << 31) - 1
 
-#: Rows per compaction tile (csrc/o2v_compact.cuh COMPACT_TILE).
+#: Slots a block of K1 clips at a time (csrc/fused_pass.cu COMPACT_TILE).
 COMPACT_TILE = 256
 
 #: Launch counts of the kernels.  Each wrapper adds one where it launches
 #: its kernel and nowhere else.
-LAUNCHES = {"fused_pass": 0, "fused_pass_batch": 0, "segment_combine": 0,
-            "pack_exact": 0, "combine_pack": 0, "clip_pairs": 0,
-            "pack_channels": 0, "merge_runs": 0, "plan_hist": 0,
-            "plan_keys": 0, "plan_scatter": 0}
+LAUNCHES = {"fused_pass": 0, "segment_combine": 0, "pack_exact": 0,
+            "combine_pack": 0, "clip_pairs": 0, "pack_channels": 0,
+            "merge_runs": 0, "plan_hist": 0, "plan_keys": 0, "plan_scatter": 0}
 
 #: Seconds the last build took (None: loaded from an existing build).
 BUILD_SECONDS = None
@@ -50,15 +49,11 @@ BUILD_SECONDS = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # keys_out, 4 channels (out), count_out, slot scratch x5, tile counts,
-    # tile offsets, table, n_table_rows, r0, n_rows, local_base, z_lo, z_hi,
+    # keys_out, 4 channels (out), counts_out, each (B, ...); look-back status
+    # words + ticket (8-byte aligned; the launcher zeroes them), table,
+    # n_table_rows, host (B, 5) (r0, n_rows, local_base, z_lo, z_hi), B,
     # stride, log2_expand, budget, wide_local, ref_weights, textured, stream
-    "o2v_fused_pass": [_P] * 6 + [_P] * 5 + [_P, _P] + [_P] + [_I] * 12 + [_P],
-    # the same outputs, each (B, ...); look-back status words + ticket
-    # (8-byte aligned; the launcher zeroes them), table, n_table_rows, host
-    # (B, 5) (r0, n_rows, local_base, z_lo, z_hi), B, stride, log2_expand,
-    # budget, ref_weights, stream
-    "o2v_fused_pass_batch": [_P] * 6 + [_P] + [_P, _I, _P] + [_I] * 5 + [_P],
+    "o2v_fused_pass": [_P] * 6 + [_P] + [_P, _I, _P] + [_I] * 7 + [_P],
     # keys, w, r, g, b, out x5, count_out, scratch (16-byte aligned; the
     # launcher zeroes its flags), n, combine, compact, is_blend, stream
     "o2v_reduce_by_key": [_P] * 5 + [_P] * 5 + [_P, _P] + [_I] * 4 + [_P],

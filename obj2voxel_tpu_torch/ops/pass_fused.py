@@ -9,8 +9,7 @@ Per slot: the row's voxel AABB (x/y clamped to [0, stride), z to
 [z_lo, z_hi)), the rank decoded to a voxel, the six-plane clip with the
 clipped area as weight, the key (vz - z_lo) * stride^2 + vy * stride + vx
 and the premultiplied channels (w, w*r, w*g, w*b).  The live pairs (w > 0)
-come back compacted in slot order with an exact count; rows past the count
-are (INVALID, 0).
+come back compacted in slot order with an exact count.
 
 `wide_local` passes (giant triangles whose rank can reach 2^23) decode the
 rank with exact integer div/mod (obj2voxel_tpu/engine.py:466-470); all
@@ -27,18 +26,20 @@ where the TPU kernel writes zeros, the pair's table row as int32, so that
 the texture sampling finds the row's type, color and texture id.  Both flags
 combine.
 
-`fused_pass` takes the plain version for CPU tensors and launches the CUDA
-kernel for CUDA tensors; `fused_pass_ref` is the plain version, built from
-the XLA branch of obj2voxel_tpu/engine.py `_bucket_pass` and ops/clip.py.
-
 `fused_pass_batch` is the TPU kernel's batched form (`nbatch` > 1,
 obj2voxel_tpu/engine.py `_bucket_pass_batch`): up to MAX_BATCH untextured,
-non-`wide_local` passes that share expand, budget, stride and ref_weights,
-in one launch that clips and compacts; row b's first counts[b] entries are
-pass b's `fused_pass` output, bit for bit, and the entries past the count
-are undefined (the TPU kernel's pack mode leaves them so too).
-`fused_pass_batch_ref`, its plain version, stacks `fused_pass_ref` over the
-passes (and so fills them with (INVALID, 0)).
+non-`wide_local` passes that share expand, budget, stride and ref_weights;
+row b's first counts[b] entries are pass b's `fused_pass` output, bit for
+bit.  For CUDA tensors both wrappers make one launch of the one kernel
+(csrc/fused_pass.cu, after a memset of its look-back status words):
+`fused_pass` is its launch of one pass, as `fused_pass_pallas` is the TPU
+kernel's nbatch = 1.  The kernel leaves the rows past a count undefined (the
+TPU kernel's pack mode does too), so a caller reads only `[:count]`.
+
+For CPU tensors the wrappers take the plain versions: `fused_pass_ref`,
+built from the XLA branch of obj2voxel_tpu/engine.py `_bucket_pass` and
+ops/clip.py, and `fused_pass_batch_ref`, which stacks it over the passes;
+both fill the rows past a count with (INVALID, 0).
 """
 
 from __future__ import annotations
@@ -179,9 +180,9 @@ def fused_pass(table, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
     each occupied voxel by its whole triangle's area.
 
     Returns (key (budget,) int32, w, wr, wg, wb (budget,) float32, count (1,)
-    int32): the live pairs in slot order, then (INVALID, 0).  With
-    `textured`, (key, w, u, v (budget,) float32, row (budget,) int32,
-    count)."""
+    int32): the live pairs in slot order, then (INVALID, 0) on the CPU and
+    undefined rows on CUDA.  With `textured`, (key, w, u, v (budget,)
+    float32, row (budget,) int32, count)."""
     r0, n_rows, local_base = int(r0), int(n_rows), int(local_base)
     z_lo, z_hi, stride = int(z_lo), int(z_hi), int(stride)
     _check(table, r0, n_rows, local_base, z_lo, z_hi, stride, expand, budget,
@@ -191,29 +192,9 @@ def fused_pass(table, r0, n_rows, local_base, z_lo, z_hi, stride, *, expand,
                               expand=expand, budget=budget,
                               wide_local=wide_local, ref_weights=ref_weights,
                               textured=textured)
-    dev = _cuda.require_cuda("fused_pass", table)
-    n_tiles = -(-budget // _cuda.COMPACT_TILE)
-    # one buffer for the outputs (key, 4 channels, count) and one for the
-    # slot-ordered scratch and the tile counts and offsets: two allocations
-    # a pass
-    out = torch.empty(5 * budget + 1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(5 * budget + 2 * n_tiles, dtype=torch.int32, device=dev)
-    key, count = out[:budget], out[5 * budget:]
-    chans = [out[(i + 1) * budget:(i + 2) * budget] for i in range(4)]
-    # the fourth channel of a textured pass is the row's int32
-    chans = [c if textured and i == 3 else c.view(torch.float32)
-             for i, c in enumerate(chans)]
-    op, sp = out.data_ptr(), scratch.data_ptr()
-    err = _cuda.lib().o2v_fused_pass(
-        *(op + 4 * i * budget for i in range(6)),
-        *(sp + 4 * i * budget for i in range(6)), sp + 4 * (5 * budget + n_tiles),
-        table.data_ptr(), table.shape[0], r0, n_rows, local_base, z_lo, z_hi,
-        stride, expand.bit_length() - 1, budget, int(bool(wide_local)),
-        int(bool(ref_weights)), int(bool(textured)), _cuda.stream_ptr(dev),
-    )
-    _cuda.check(err, "fused_pass")
-    _cuda.count_launch("fused_pass")
-    return (key, *chans, count)
+    return _launch("fused_pass", table, [(r0, n_rows, local_base, z_lo, z_hi,
+                                          stride)], expand, budget, wide_local,
+                   ref_weights, textured)
 
 
 def fused_pass_batch_ref(table, passes, *, expand, budget, ref_weights=False):
@@ -253,7 +234,19 @@ def fused_pass_batch(table, passes, *, expand, budget, ref_weights=False):
     if table.device.type == "cpu":
         return fused_pass_batch_ref(table, passes, expand=expand, budget=budget,
                                     ref_weights=ref_weights)
-    dev = _cuda.require_cuda("fused_pass_batch", table)
+    nb = len(passes)
+    out = _launch("fused_pass_batch", table, passes, expand, budget, False,
+                  ref_weights, False)
+    return (*(x.view(nb, budget) for x in out[:5]), out[5])
+
+
+def _launch(name, table, passes, expand, budget, wide_local, ref_weights,
+            textured):
+    """One launch of the CUDA kernel over `passes` (checked, all of one
+    stride): (key, 4 channels (B * budget,), counts (B,)), pass b's rows at
+    b * budget; the fourth channel of a textured launch is the rows'
+    int32."""
+    dev = _cuda.require_cuda(name, table)
     nb = len(passes)
     size = nb * budget
     n_tiles = -(-budget // _cuda.COMPACT_TILE)
@@ -262,19 +255,20 @@ def fused_pass_batch(table, passes, *, expand, budget, ref_weights=False):
     # and the ticket, which the launcher zeroes
     head = 5 * size + nb + nb % 2
     out = torch.empty(head + 2 * (nb * n_tiles + 1), dtype=torch.int32, device=dev)
-    key = out[:size].view(nb, budget)
-    chans = [out[(i + 1) * size:(i + 2) * size].view(torch.float32).view(nb, budget)
-             for i in range(4)]
+    key = out[:size]
+    chans = [out[(i + 1) * size:(i + 2) * size] for i in range(4)]
+    chans = [c if textured and i == 3 else c.view(torch.float32)
+             for i, c in enumerate(chans)]
     counts = out[5 * size:5 * size + nb]
     # (r0, n_rows, local_base, z_lo, z_hi) a pass, by value into the launch
     scal = (ctypes.c_int * (5 * nb))(*(x for p in passes for x in p[:5]))
     op = out.data_ptr()
-    err = _cuda.lib().o2v_fused_pass_batch(
+    err = _cuda.lib().o2v_fused_pass(
         *(op + 4 * i * size for i in range(6)), op + 4 * head,
         table.data_ptr(), table.shape[0], scal, nb, passes[0][5],
-        expand.bit_length() - 1, budget, int(bool(ref_weights)),
-        _cuda.stream_ptr(dev),
+        expand.bit_length() - 1, budget, int(bool(wide_local)),
+        int(bool(ref_weights)), int(bool(textured)), _cuda.stream_ptr(dev),
     )
-    _cuda.check(err, "fused_pass_batch")
-    _cuda.count_launch("fused_pass_batch")
+    _cuda.check(err, name)
+    _cuda.count_launch("fused_pass")
     return (key, *chans, counts)

@@ -5,8 +5,8 @@ one 4096^2 REPEAT texture), untextured through the merge-runs route (BLEND,
 K6) and supersampled from 2048^3 (MAX), outputs kept on the device; and of
 ten calls of K1, K4, K5 and K6 alone at chip_smoke.py's timing shapes
 (phases 2, 9, 10 and 13), and of the slab merge's combine (`--paths
-combine`: the fused `combine_pack`, K2 and K3 alone, and the engine's call)
-on phase 3's stream and on the sphere's real merge input; and of one warm
+combine`: the fused `combine_pack`, which the engine calls, and K2 and K3
+alone) on phase 3's stream and on the sphere's real merge input; and of one warm
 `voxelize_batch` run of phase 17's 1000 meshes (`--paths batch`: the trace,
 then the host functions by cumulative time under cProfile); and of one warm
 run of the bench entry's device mode on bench.py's 10M-triangle table at
@@ -194,11 +194,9 @@ def k1_input(table, aabb):
 def profile_combine(table, aabb, top):
     """The slab merge's combine on phase 3's `runs` stream and on the sphere
     slab's real merge input (the key-sorted slab with the most passes):
-    CUDA-event ms and a trace of ten calls each of the engine's
-    `_combine_presorted`, K2 alone, K3 alone on K2's output, and
-    `combine_pack` alone (absent before it existed, so the same script
-    measures a parent tree too)."""
-    from obj2voxel_tpu_torch.engine import _combine_presorted
+    CUDA-event ms and a trace of ten calls each of K2 alone, K3 alone on
+    K2's output, and `combine_pack`, the engine's call (absent before it
+    existed, so the same script measures an older tree too)."""
     from obj2voxel_tpu_torch.ops import combine_pallas
     from obj2voxel_tpu_torch.ops.combine import sort_channels
     from obj2voxel_tpu_torch.ops.pack_pallas import pack_exact
@@ -210,7 +208,6 @@ def profile_combine(table, aabb, top):
     for what, (keys, chans) in streams.items():
         tk, *tv = combine_pallas.segment_combine(keys, *chans, True)
         calls = {
-            "_combine_presorted": lambda: _combine_presorted(keys, chans, True),
             "K2 segment_combine": lambda: combine_pallas.segment_combine(
                 keys, *chans, True),
             "K3 pack_exact on K2's output": lambda: pack_exact(tk, tuple(tv)),

@@ -214,7 +214,7 @@ def test_wrapper_takes_plain_version_on_cpu():
     _cuda.reset_launches()
     got = fused_pass_batch(table, passes, expand=8, budget=1024)
     want = fused_pass_batch_ref(table, passes, expand=8, budget=1024)
-    assert _cuda.LAUNCHES["fused_pass_batch"] == 0
+    assert _cuda.LAUNCHES["fused_pass"] == 0
     assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
     # one pass alone is `fused_pass`'s output
     one = fused_pass_batch(table, passes[2:3], expand=8, budget=1024)
@@ -230,7 +230,7 @@ class _Lib:
     def __init__(self, err=0):
         self.calls, self.err = [], err
 
-    def o2v_fused_pass_batch(self, *args):
+    def o2v_fused_pass(self, *args):
         self.calls.append(args)
         return self.err
 
@@ -254,8 +254,7 @@ def test_wrapper_cuda_branch_layout(monkeypatch):
     budget, nb = 1024, len(passes)
     key, w, r, g, b, counts = fused_pass_batch(table, passes, expand=8,
                                                budget=budget, ref_weights=True)
-    assert _cuda.LAUNCHES["fused_pass_batch"] == len(lib.calls) == 1
-    assert _cuda.LAUNCHES["fused_pass"] == 0
+    assert _cuda.LAUNCHES["fused_pass"] == len(lib.calls) == 1
     args = lib.calls[0]
     size = nb * budget
     assert key.shape == w.shape == (nb, budget) and counts.shape == (nb,)
@@ -269,7 +268,9 @@ def test_wrapper_cuda_branch_layout(monkeypatch):
     assert key.untyped_storage().nbytes() == 4 * head + 8 * (nb * tiles + 1)
     scal = args[9]
     assert list(scal) == [x for p in passes for x in p[:5]]
-    assert args[10:16] == (nb, 8, 3, budget, 1, 0)
+    # B, stride, log2 expand, budget, wide_local, ref_weights, textured,
+    # stream
+    assert args[10:18] == (nb, 8, 3, budget, 0, 1, 0, 0)
 
 
 def test_wrapper_raises_on_a_failed_launch(monkeypatch):
@@ -277,7 +278,7 @@ def test_wrapper_raises_on_a_failed_launch(monkeypatch):
     _cuda.reset_launches()
     with pytest.raises(RuntimeError, match="fused_pass_batch: CUDA error 2"):
         fused_pass_batch(table, [(0, 8, 0, 0, 8, 8)] * 2, expand=8, budget=1024)
-    assert _cuda.LAUNCHES["fused_pass_batch"] == 0
+    assert _cuda.LAUNCHES["fused_pass"] == 0
 
 
 GOOD = (0, 16, 0, 0, 8, 8)

@@ -15,7 +15,6 @@ import torch
 
 from jax_reference import reference
 from obj2voxel_tpu_torch.ops import combine as tcomb
-from obj2voxel_tpu_torch.engine import _combine_presorted
 from obj2voxel_tpu_torch.ops.combine_pallas import (
     combine_pack,
     segment_combine,
@@ -233,10 +232,11 @@ def test_combine_pack_empty_stream():
 
 @pytest.mark.parametrize("is_blend", [True, False], ids=["blend", "max"])
 def test_combine_presorted_is_the_plain_chain(is_blend):
-    # the engine's merge tail equals K2's plain version then K3's, exactly
+    # the engine's merge tail, `combine_pack` on a key-sorted stream, equals
+    # K2's plain version then K3's, exactly
     keys, w, rgb = _stream(5, 50)
     sk, sch = _port_sorted(keys, w, rgb)
-    got = _combine_presorted(sk, sch, is_blend)
+    got = combine_pack(sk, sch, is_blend)
     tk, *tv = segment_combine_ref(sk, *sch, is_blend)
     want = pack_exact_ref(tk, tuple(tv))
     assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])

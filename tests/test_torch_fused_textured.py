@@ -16,8 +16,12 @@
   operations in the same order: keys, rows, w, u and v exactly.
 - `ref_weights` keeps the clipped variant's pairs, order and UVs, and
   weighs each by its whole triangle's area.
-- `engine._textured_pass` against the route it replaced (`pass_pairs` ->
-  the plain K4 -> texture sampling -> K3), byte for byte.
+- K1's textured variant, then `engine._textured_pass` on its live pairs,
+  against the route they replaced (`pass_pairs` -> the plain K4 -> texture
+  sampling -> K3), byte for byte.
+- A stream reads nothing of a pass past its count: with every row past each
+  count poisoned (keys in range, NaN channels, row ids outside the table),
+  a textured and an untextured soup give the bytes of the clean run.
 
 The JAX outputs are those of tests/fixtures/jax_fused_textured.npz
 (scripts/jax_test_references.py).
@@ -37,7 +41,7 @@ from jax_reference import reference
 import obj2voxel_tpu_torch as pt
 from obj2voxel_tpu_torch import constants as C
 from obj2voxel_tpu_torch import engine
-from obj2voxel_tpu_torch.ops import _cuda
+from obj2voxel_tpu_torch.ops import _cuda, pass_fused
 from obj2voxel_tpu_torch.ops.clip_pallas import clip_pairs_ref, pass_pairs
 from obj2voxel_tpu_torch.ops.color import sample_pair_colors_uv, upload_pool
 from obj2voxel_tpu_torch.ops.combine import premultiply
@@ -57,11 +61,12 @@ RES = 32
 Z_LO, Z_HI = 2, 30
 
 
-def _table(seed, n=1100, res=RES):
-    """(n, 24) textured table rows in voxel space: random triangles of three
-    sizes (a quarter of their coordinates snapped onto voxel planes), then
-    the triangle in the plane x = 6, then triangles in or within 1e-5 of a
-    voxel face; UVs in [-2, 3], three textures and some flat rows."""
+def _arrays(seed, n=1100, res=RES):
+    """Host arrays (verts, uvs, types, rgb, tex) of n textured triangles in
+    voxel space: random triangles of three sizes (a quarter of their
+    coordinates snapped onto voxel planes), then the triangle in the plane
+    x = 6, then triangles in or within 1e-5 of a voxel face; UVs in [-2, 3],
+    three textures and some flat rows."""
     rng = np.random.default_rng(seed)
     n_face = n // 3
     n_rand = n - n_face - 1
@@ -80,9 +85,13 @@ def _table(seed, n=1100, res=RES):
     uvs = rng.uniform(-2, 3, size=(n, 3, 2)).astype(np.float32)
     types = np.where(rng.random(n) < 0.8, C.TRI_TEXTURED, C.TRI_UNTEXTURED)
     tex = np.where(types == C.TRI_TEXTURED, rng.integers(0, 3, n), -1)
-    return build_tri_table(verts, uvs, types.astype(np.int32),
-                                rng.random((n, 3), dtype=np.float32),
-                                tex.astype(np.int32))
+    return (verts, uvs, types.astype(np.int32),
+            rng.random((n, 3), dtype=np.float32), tex.astype(np.int32))
+
+
+def _table(seed, n=1100, res=RES):
+    """`_arrays` as (n, 24) table rows."""
+    return build_tri_table(*_arrays(seed, n, res))
 
 
 def _pool():
@@ -272,12 +281,15 @@ def test_textured_pass_equals_old_route_bytes(table, case, ref_weights):
         args = (R0, N_ROWS, 0, Z_LO, Z_HI, RES)
         kw = dict(expand=EXPAND, budget=BUDGET, wide_local=False)
     t, pool = torch.from_numpy(t), _pool()
-    got = engine._textured_pass(t, pool, *args, ref_weights=ref_weights, **kw)
+    key, *chans, count = fused_pass(t, *args, ref_weights=ref_weights,
+                                    textured=True, **kw)
+    n = int(count)
+    got = (key[:n], *engine._textured_pass(t, pool, *(x[:n] for x in chans)))
     want = _old_textured_pass(t, pool, *args, ref_weights=ref_weights, **kw)
-    assert int(want[5]) > 100
+    assert int(want[5]) == n > 100
     for g, x in zip(got, want):
-        assert g.dtype == x.dtype and g.shape == x.shape
-        assert torch.equal(g.view(torch.int32), x.view(torch.int32))
+        assert g.dtype == x.dtype and g.shape == x[:n].shape
+        assert torch.equal(g.view(torch.int32), x[:n].view(torch.int32))
 
 
 def test_wrapper_takes_plain_version_on_cpu(table):
@@ -288,24 +300,70 @@ def test_wrapper_takes_plain_version_on_cpu(table):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def test_textured_pass_runs_k1_textured(monkeypatch, table):
-    # the textured pass hands its slots to K1 with textured=True
-    calls = []
-    inner = engine.fused_pass
+def _stream_bytes(arrays, pool, **kw):
+    """The voxels of one CPU stream of host `arrays` on the RES^3 grid, MAX,
+    as bytes."""
+    out = engine.voxelize_grid(*arrays, pool, device="cpu", stride=RES,
+                               z_extent=RES, is_blend=False, **kw)
+    return b"".join(x.tobytes() + a.tobytes() for x, a in out)
+
+
+def test_textured_pass_runs_k1_textured(monkeypatch):
+    # a textured mesh's passes go to K1 with textured=True, and each pass's
+    # live pairs, and only those, to `_textured_pass`
+    calls, colored = [], []
+    inner, color = engine.fused_pass, engine._textured_pass
 
     def logged(*args, **kw):
-        calls.append(kw)
-        return inner(*args, **kw)
+        out = inner(*args, **kw)
+        calls.append((kw["textured"], int(out[5])))
+        return out
+
+    def logged_color(table, pool, w, u, v, row):
+        colored.append(w.shape[0])
+        return color(table, pool, w, u, v, row)
 
     monkeypatch.setattr(engine, "fused_pass", logged)
-    engine._textured_pass(torch.from_numpy(table), _pool(), 40, 64, 0, Z_LO, Z_HI,
-                          RES, expand=8, budget=1024, wide_local=False)
-    assert len(calls) == 1 and calls[0]["textured"] is True
+    monkeypatch.setattr(engine, "_textured_pass", logged_color)
+    assert _stream_bytes(_arrays(7, n=300), _pool(), max_pass_budget=1 << 14)
+    assert len(calls) > 1 and all(textured for textured, _ in calls)
+    assert colored == [n for _, n in calls if n]
 
 
-def test_wrapper_textured_layout(monkeypatch):
-    # the CUDA branch on meta tensors with a stand-in library: one call with
-    # textured=1, two allocations, and the fourth channel is the rows' int32
+@pytest.mark.parametrize("textured", [False, True], ids=["untextured", "textured"])
+def test_stream_reads_nothing_past_a_count(monkeypatch, textured):
+    arrays = _arrays(8, n=300)
+    pool = _pool() if textured else None
+    kw = dict(max_pass_budget=1 << 14)
+    want = _stream_bytes(arrays, pool, **kw)
+    clean = pass_fused.fused_pass_ref
+    poisoned = []
+
+    def poison(table, *args, budget, **kw):
+        out = clean(table, *args, budget=budget, **kw)
+        n = int(out[5])
+        gen = torch.Generator().manual_seed(len(poisoned))
+        out[0][n:] = torch.randint(0, RES ** 3, (budget - n,), generator=gen,
+                                   dtype=torch.int32)
+        for c in out[1:5]:
+            if c.dtype == torch.int32:  # the rows: ids outside the table
+                c[n:] = table.shape[0] + torch.randint(
+                    0, 1 << 20, (budget - n,), generator=gen, dtype=torch.int32)
+            else:
+                c[n:] = float("nan")
+        poisoned.append(budget - n)
+        return out
+
+    monkeypatch.setattr(pass_fused, "fused_pass_ref", poison)
+    assert _stream_bytes(arrays, pool, **kw) == want
+    assert len(poisoned) > 1 and sum(poisoned) > 0
+
+
+@pytest.mark.parametrize("wide_local", [False, True], ids=["slots", "wide_local"])
+def test_wrapper_textured_layout(monkeypatch, wide_local):
+    # the CUDA branch on meta tensors with a stand-in library: one call of
+    # the one launcher for one pass, with textured=1 and wide_local passed
+    # through, one allocation, and the fourth channel is the rows' int32
     calls, made = [], []
 
     class Lib:
@@ -327,18 +385,22 @@ def test_wrapper_textured_layout(monkeypatch):
     _cuda.reset_launches()
     budget = 1024
     key, w, u, v, row, count = fused_pass(table, 0, 64, 0, 0, 8, 8, expand=8,
-                                          budget=budget, textured=True)
+                                          budget=budget, wide_local=wide_local,
+                                          textured=True)
     assert _cuda.LAUNCHES["fused_pass"] == len(calls) == 1
-    assert len(made) == 2
+    assert len(made) == 1
     assert key.dtype == row.dtype == count.dtype == torch.int32
     assert w.dtype == u.dtype == v.dtype == torch.float32
+    assert key.shape == row.shape == (budget,) and count.shape == (1,)
     # outputs at the pointers passed (a meta tensor's pointer is 0)
     assert list(calls[0][:6]) == [4 * i * budget for i in range(6)]
     offsets = [4 * x.storage_offset() for x in (key, w, u, v, row, count)]
     assert offsets == list(calls[0][:6])
-    assert calls[0][-2] == 1  # textured
+    # one pass, stride 8, log2 expand 3, budget, wide_local, ref_weights,
+    # textured
+    assert calls[0][10:17] == (1, 8, 3, budget, int(wide_local), 0, 1)
     fused_pass(table, 0, 64, 0, 0, 8, 8, expand=8, budget=budget)
-    assert calls[1][-2] == 0
+    assert calls[1][14:17] == (0, 0, 0)
 
 
 def _fake_nvcc(tmp_path, monkeypatch, fail_on=None):

@@ -21,9 +21,10 @@ plain version of K1's batched form).
   wave), O2V_HOST_PLAN=1 (the device planner is not called), O2V_GROUP=1
   (also in parallel/mesh.py's windows) and O2V_MAX_PASS_BUDGET (read at
   import, so in a fresh interpreter); O2V_TIMING=1 prints the JAX package's
-  `[o2v-timing]` lines, each wave with its dispatches and batched passes,
-  between the port's own lines of the host prep, the table and the pulls,
-  and nothing without it.
+  `[o2v-timing]` lines of the plan, each wave with its dispatches and
+  batched passes and its merges (not its slab-count hint), between the
+  port's own lines of the host prep, the table and the pulls, and nothing
+  without it.
 """
 
 import hashlib
@@ -277,13 +278,12 @@ def test_timing_lines(monkeypatch, capsys):
     assert lines[0].startswith("[o2v-timing] prepare ")
     assert lines[1].startswith("[o2v-timing] table+upload ")
     lines = lines[2:]
-    assert lines[0].startswith("[o2v-timing]   hint ")
-    assert lines[1].startswith("[o2v-timing] plan+gather ")
-    assert " rows=6000 segments=" in lines[1]
-    assert lines[2].startswith(
+    assert lines[0].startswith("[o2v-timing] plan+gather ")
+    assert " rows=6000 segments=" in lines[0]
+    assert lines[1].startswith(
         f"[o2v-timing]   wave: 1 slabs {stats['passes']} passes "
         f"({stats['dispatches']} dispatches, {stats['batched']} batched) ")
-    assert " (dispatch " in lines[2] and "counts=[" in lines[2]
-    assert lines[3].startswith("[o2v-timing]   1 merges ")
-    assert lines[4].startswith("[o2v-timing]   1 pulls ")
-    assert len(lines) == 5
+    assert " (dispatch " in lines[1] and "counts=[" in lines[1]
+    assert lines[2].startswith("[o2v-timing]   1 merges ")
+    assert lines[3].startswith("[o2v-timing]   1 pulls ")
+    assert len(lines) == 4

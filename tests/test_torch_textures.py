@@ -153,13 +153,14 @@ def pass_log(monkeypatch):
     runs."""
     from obj2voxel_tpu_torch import engine
 
-    log, inner = [], engine._textured_pass
+    log, inner = [], engine.fused_pass
 
-    def logged(table, pool, r0, n_rows, local_base, z_lo, *args, **kw):
-        log.append((z_lo, kw["expand"], kw["wide_local"]))
-        return inner(table, pool, r0, n_rows, local_base, z_lo, *args, **kw)
+    def logged(table, r0, n_rows, local_base, z_lo, *args, **kw):
+        if kw["textured"]:
+            log.append((z_lo, kw["expand"], kw["wide_local"]))
+        return inner(table, r0, n_rows, local_base, z_lo, *args, **kw)
 
-    monkeypatch.setattr(engine, "_textured_pass", logged)
+    monkeypatch.setattr(engine, "fused_pass", logged)
     return log
 
 
