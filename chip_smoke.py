@@ -95,6 +95,10 @@ BATCH_MESHES = 1000
 BATCH_RES = 64
 BATCH_VOXELS = 18_162_858
 BATCH_SHA256 = "b94329ff2410c1f3078bc20ab567f91035c5ac2002c89296c5826b98dfe16e92"
+# Its prep on the card (ops/batch_prep.py, `engine.PREP_STATS`): the numpy
+# `prepare_soup` of every mesh gives the same triangles.
+BATCH_PREP = {"meshes": 1000, "triangles_in": 224_626, "triangles_out": 669_310,
+              "rounds": 3}
 # Phase 19: the unit cube at r = 32 through the C shim (capi_test.c).
 CUBE_32_VOXELS = 5768
 # Phases 21-23: the port's CPU runs of the same calls
@@ -1399,7 +1403,8 @@ def phase_batch(info):
     non-empty, the count and digest of the CPU runs, K1 and combine_pack
     launched; then the warm median of 3 runs."""
     import obj2voxel_tpu_torch as pt
-    from obj2voxel_tpu_torch.engine import prepare_soup
+    from obj2voxel_tpu_torch.engine import PREP_STATS
+    from obj2voxel_tpu_torch.ops.batch_prep import batch_table
 
     t0 = time.perf_counter()
     soups = [pt.TriangleSoup.from_vertices(t) for t in batch_meshes()]
@@ -1412,6 +1417,9 @@ def phase_batch(info):
     results = run()
     launches = dict(pt.LAUNCHES)
     check_path("batch", launches)
+    prep = dict(PREP_STATS)
+    if prep != dict(BATCH_PREP, device="cuda"):
+        fail(f"batch: prep stats {prep}, want {BATCH_PREP} on cuda")
     voxels, nonempty, digest = batch_digest(results)
     if nonempty != BATCH_MESHES:
         fail(f"batch: {nonempty}/{BATCH_MESHES} meshes non-empty")
@@ -1421,17 +1429,16 @@ def phase_batch(info):
     del results
     times = timed_runs(lambda: sum(x.shape[0] for x, _ in run()), voxels, "batch")
     med = sorted(times)[1]
-    # the per-mesh host work alone (normalize, subdivide), as voxelize_batch
-    # does it before the stream
+    # the prep and the table alone (every mesh's bounds, transform and
+    # subdivision on the card), as voxelize_batch does it before the stream
     t = time.perf_counter()
-    for soup in soups:
-        prepare_soup(soup, BATCH_RES)
+    batch_table(soups, BATCH_RES, "cuda")  # its AABBs come back: a sync
     host = time.perf_counter() - t
     phase(f"17 batch ({BATCH_MESHES} spheres @ {BATCH_RES}^3 MAX, voxelize_batch)", t0,
           f"{BATCH_MESHES}/{BATCH_MESHES} non-empty, {voxels} voxels, {n_tris} "
           f"triangles, sha256 equal to the CPU runs'; warm median {med:.4f} s = "
           f"{BATCH_MESHES / med:.1f} meshes/s; runs {[round(x, 4) for x in times]}; "
-          f"per-mesh host prep alone {host:.4f} s; launches {launches}; on {info}")
+          f"prep and table alone {host:.4f} s ({prep}); launches {launches}; on {info}")
     return launches
 
 

@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 from .constants import ANTI_BLEED, BLEND_STRATEGY, TRI_MATERIALLESS, TRI_TEXTURED
-from .engine import MAX_PASS_BUDGET, _pow2_at_least, stream_slabs, voxelize_soup
-from .soup import TriangleSoup, build_tri_table
+from .engine import MAX_PASS_BUDGET, stream_slabs, voxelize_soup
+from .soup import TriangleSoup, build_tri_table, pow2_at_least
 from .utils.meshes import make_sphere_mesh
 
 __all__ = ["MODES", "occupancy_sha256", "result_line", "run_device_resident",
@@ -57,7 +57,7 @@ def sphere_table(n_target: int, resolution: int, textured: bool = False):
     n = tris.shape[0]
     scale = (resolution - ANTI_BLEED) / 2.0
     tris = (tris + 1.0) * np.float32(scale) + np.float32(ANTI_BLEED / 2.0)
-    n_pad = _pow2_at_least(n)
+    n_pad = pow2_at_least(n)
     verts = np.zeros((n_pad, 3, 3), np.float32)
     verts[:n] = tris
     uv_pad = np.zeros((n_pad, 3, 2), np.float32)

@@ -57,14 +57,18 @@ Knobs, read as the JAX package reads them: O2V_MAX_PASS_BUDGET (at import:
 MAX_PASS_BUDGET), and per `stream_slabs` call O2V_WAVE_CAP (slots in
 flight a wave), O2V_HOST_PLAN=1 (plan on the host), O2V_GROUP (triangles
 per planning unit), O2V_BATCH, O2V_BATCH_FORCE and O2V_TIMING=1
-(`[o2v-timing]` lines on stdout: the host prep, the table and its upload,
-the plan, each wave, its merges and its pulls, and in `api.Instance` the
-input's load and the writer; `TIMING_S` sums their seconds by stage).
+(`[o2v-timing]` lines on stdout: the host prep, the table and its upload
+(a batch's whole prep on the device), the plan, each wave, its merges and
+its pulls, and in `api.Instance` the input's load and the writer;
+`TIMING_S` sums their seconds by stage).
 
 Batch mode (`voxelize_batch`, obj2voxel_tpu/engine.py:1501-1587) stacks many
 small meshes along z, each normalized to its own grid, into one
-`voxelize_grid` stream, and splits the output by mesh once, after it (a
-stack with more than MAX_DEVICE_SLABS slabs is planned on the host).
+`stream_slabs` stream, and splits the output by mesh once, after it (a
+stack with more than MAX_DEVICE_SLABS slabs is planned on the host).  Its
+host prep and table are built on the device for every mesh at once
+(ops/batch_prep.py), bit for bit what `prepare_soup` a mesh, the z stack
+and `host_table` give; `PREP_STATS` counts the last call's.
 `stream_slabs(z_window=...)` streams one window of the grid, for
 parallel/mesh.py.
 
@@ -83,6 +87,7 @@ import torch
 from .constants import BLEND_STRATEGY, MAX_STRATEGY, PAIR_TILE
 from .geometry import compute_mesh_transform, mesh_bounds
 from .io import debug_stl
+from .ops.batch_prep import batch_table
 from .ops.color import sample_pair_colors_uv, upload_pool
 from .ops.combine import (
     downscale_keys, finalize_colors, pack_argb, sort_channels,
@@ -93,14 +98,14 @@ from .ops.pass_fused import fused_pass, fused_pass_batch
 from .ops.plan import plan_mesh
 from .ops.plan_device import gather_ordered, hist_in_smem, plan_mesh_device
 from .ops.subdivide import subdivide_soup
-from .soup import TexturePool, TriangleSoup, build_tri_table
+from .soup import TexturePool, TriangleSoup, build_tri_table, pow2_at_least
 from .utils import debug as _dbg
 from .utils.log import log as _log
 
 __all__ = [
-    "MAX_PASS_BUDGET", "TriangleSoup", "WAVE_STATS", "build_tri_table",
-    "densify", "plan_fold_chunks", "stream_slabs", "voxelize_batch",
-    "voxelize_grid", "voxelize_soup",
+    "MAX_PASS_BUDGET", "PREP_STATS", "TriangleSoup", "WAVE_STATS",
+    "build_tri_table", "densify", "plan_fold_chunks", "stream_slabs",
+    "voxelize_batch", "voxelize_grid", "voxelize_soup",
 ]
 
 #: Maximum pair slots per pass (the effective budget is
@@ -138,6 +143,12 @@ BATCH_BLOCK = 8192
 WAVE_STATS = {"passes": 0, "dispatches": 0, "batched": 0, "slabs": 0, "waves": 0,
               "rows": 0, "host_plan": 0, "hist_smem": 0}
 
+#: The last `voxelize_batch` call's prep on the device (ops/batch_prep.py):
+#: meshes prepared in bulk, triangles in and out of the subdivision, its
+#: checks (a round's split test, the last finding none), and the device.
+PREP_STATS = {"meshes": 0, "triangles_in": 0, "triangles_out": 0, "rounds": 0,
+              "device": ""}
+
 #: Under O2V_TIMING=1, the host seconds of each `[o2v-timing]` stage (load,
 #: prepare, table, plan, passes, merges, pulls, write), summed over the
 #: lines printed since the caller last cleared it.
@@ -148,13 +159,6 @@ def timing_line(stage: str, seconds: float, text: str):
     """Print one `[o2v-timing]` line and add `seconds` to TIMING_S[stage]."""
     TIMING_S[stage] = TIMING_S.get(stage, 0.0) + seconds
     print(f"[o2v-timing] {text}", flush=True)
-
-
-def _pow2_at_least(n: int, minimum: int = 256) -> int:
-    p = minimum
-    while p < n:
-        p *= 2
-    return p
 
 
 def _chunk_budget(remaining_slots: int, expand: int, max_budget: int) -> int:
@@ -413,7 +417,7 @@ def host_table(verts_host, uvs_host, types_host, rgb_host, tex_host, *, stride,
     vmin_h = np.clip(np.floor(verts_host.min(axis=1)), 0, clamp_hi).astype(np.int32)
     vmax_h = np.clip(np.floor(verts_host.max(axis=1)) + 1, 0, clamp_hi).astype(np.int32)
     table = build_tri_table(verts_host, uvs_host, types_host, rgb_host, tex_host,
-                            n_pad=_pow2_at_least(verts_host.shape[0]))
+                            n_pad=pow2_at_least(verts_host.shape[0]))
     return table, (vmin_h, vmax_h)
 
 
@@ -661,31 +665,37 @@ def voxelize_batch(
     supersampling) and subdivided, then mesh i is moved to z in
     [i r_s, (i + 1) r_s) by adding i r_s to z in float32, the JAX package's
     op: far up the stack that rounds, so a mesh's voxels in a batch need
-    not be its voxels alone.  One `voxelize_grid` stream covers the stack,
-    and its output is split by mesh once, after the stream.  Returns one
-    (xyz (K, 3) int32, argb (K,) uint32) per mesh, in that mesh's own grid
-    and in stream order; an empty mesh keeps its slot with no voxels."""
+    not be its voxels alone.  All of it runs on `device` for every mesh at
+    once (ops/batch_prep.py: the per-mesh `prepare_soup`, the stack and
+    `host_table`, bit for bit), and builds the stacked table there.  One
+    `stream_slabs` stream covers the stack, and its output is split by mesh
+    once, after the stream.  Returns one (xyz (K, 3) int32, argb (K,)
+    uint32) per mesh, in that mesh's own grid and in stream order; an empty
+    mesh keeps its slot with no voxels."""
     sample_res = resolution * supersampling
-    parts = []
-    for i, soup in enumerate(soups):
-        if len(soup) == 0:
-            continue
-        verts, *rest = prepare_soup(soup, sample_res)
-        verts = verts.copy()
-        verts[:, :, 2] += np.float32(i * sample_res)  # stack along z
-        parts.append((verts, *rest))
-    if not parts:
+    device = torch.device(device)
+    PREP_STATS.update(meshes=0, triangles_in=0, triangles_out=0, rounds=0,
+                      device=str(device))
+    t0 = time.perf_counter()
+    prep = batch_table(soups, sample_res, device)
+    if prep is None:
         return [(np.zeros((0, 3), np.int32), np.zeros((0,), np.uint32))
                 for _ in soups]
-    device = torch.device(device)
-    stream = voxelize_grid(
-        *(np.concatenate(column) for column in zip(*parts)),
-        upload_pool(pool, device), device=device, stride=sample_res,
+    table, aabb, stats = prep
+    del prep
+    PREP_STATS.update(stats)
+    if os.environ.get("O2V_TIMING") == "1":
+        dt = time.perf_counter() - t0
+        timing_line("table", dt, f"batch prep+table {dt * 1000:.0f}ms "
+                    f"rows={table.shape[0]} {PREP_STATS}")
+    stream = stream_slabs(
+        table, upload_pool(pool, device), aabb_host=aabb, stride=sample_res,
         z_extent=len(soups) * sample_res, is_blend=bool(strategy == BLEND_STRATEGY),
         do_down=bool(supersampling > 1), pair_tile=pair_tile,
         max_pass_budget=max_pass_budget,
     )
-    del parts
+    # only the stream's generator frame holds the table from here on
+    del table, aabb
     return split_by_mesh(list(stream), len(soups), resolution)
 
 

@@ -117,6 +117,14 @@ class TexturePool:
         return pixels, meta
 
 
+def pow2_at_least(n: int, minimum: int = 256) -> int:
+    """The rows a table of n triangles is padded to: a power of two."""
+    p = minimum
+    while p < n:
+        p *= 2
+    return p
+
+
 def build_tri_table(verts, uvs, types, rgb, tex, n_pad: int | None = None) -> np.ndarray:
     """Pack per-triangle data into one (N, 24) float32 row table: [0:9]
     vertex coords, [9:15] UVs, [15] padding, [16] type, [17:20] rgb, [20]

@@ -115,21 +115,14 @@ def pass_schedule(table, aabb, stride, z_extent=None):
 
 def batch_table():
     """Phase 17's stacked table and host AABBs, as `voxelize_batch` builds
-    them (on the CPU), and its z extent."""
+    them (here on the CPU), and its z extent."""
     import obj2voxel_tpu_torch as pt
-    from obj2voxel_tpu_torch.engine import host_table, prepare_soup
+    from obj2voxel_tpu_torch.ops.batch_prep import batch_table as prep
 
     meshes = cs.batch_meshes()
-    parts = []
-    for i, tris in enumerate(meshes):
-        verts, *rest = prepare_soup(pt.TriangleSoup.from_vertices(tris), cs.BATCH_RES)
-        verts = verts.copy()
-        verts[:, :, 2] += np.float32(i * cs.BATCH_RES)
-        parts.append((verts, *rest))
-    z_extent = len(meshes) * cs.BATCH_RES
-    table, aabb = host_table(*(np.concatenate(c) for c in zip(*parts)),
-                             stride=cs.BATCH_RES, z_extent=z_extent)
-    return torch.from_numpy(table), aabb, z_extent
+    table, aabb, _ = prep([pt.TriangleSoup.from_vertices(t) for t in meshes],
+                          cs.BATCH_RES, "cpu")
+    return table, aabb, len(meshes) * cs.BATCH_RES
 
 
 def schedules():
